@@ -2,9 +2,9 @@
 network, across topologies.
 
 Prints one JSON line per topology:
-    {"topology", "num_peers", "diameter", "rounds", "wall_s"}
+    {"topology", "num_peers", "diameter", "rounds", "wall_s", "platform"}
 
-Run on CPU (default) or set BULLET_BACKEND=tpu.
+Run on CPU (default) or set BULLET_BACKEND=gpu.
 """
 
 import json
@@ -17,6 +17,7 @@ sys.path.insert(0, os.path.join(_REPO_ROOT, "examples"))
 sys.path.insert(0, _REPO_ROOT)
 import _env  # noqa: F401,E402 - backend selection
 
+import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 from bullet_tpu.models.netsim import PeerNetworkSim  # noqa: E402
@@ -46,6 +47,7 @@ def run(name, topology, num_peers=1024, keys=1024, writes=4096):
                 "diameter": sim.topology.diameter,
                 "rounds": rounds,
                 "wall_s": round(wall, 3),
+                "platform": jax.devices()[0].platform,
             }
         ),
         flush=True,

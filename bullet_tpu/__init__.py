@@ -1,10 +1,10 @@
-"""bullet_tpu — a TPU-native peer-network graph database framework.
+"""bullet_tpu — a peer-network graph database framework with a JAX engine.
 
 Capability twin of bullet-js (KORandi/bullet-js, mounted read-only at
-/root/reference), redesigned TPU-first: the host ``db`` layer is a drop-in
-for the reference API; the ``models``/``ops``/``parallel`` packages are the
-jit-compiled simulation engine (dense tables, Pallas CRT merge kernel,
-collective gossip over a device mesh). See DESIGN.md.
+/root/reference): the host ``db`` layer is a drop-in for the reference API;
+the ``models``/``ops``/``parallel`` packages are the jit-compiled simulation
+engine (dense tables, an XLA CRT merge, collective gossip over a device
+mesh). See DESIGN.md.
 
 Package entry mirrors /root/reference/index.js: default ``Bullet``, named
 component exports, a ``create`` factory, and ``VERSION``.

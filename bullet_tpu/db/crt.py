@@ -1,6 +1,6 @@
 """Conflict resolution with per-path vector clocks — reference-exact semantics.
 
-This is the host-side twin of the engine's lexicographic-max kernel: it keeps
+This is the host-side twin of the engine's lexicographic-max merge: it keeps
 full vector clocks and reproduces the complete decision table of
 ``resolve`` (/root/reference/src/bullet-crt.js:164-279) and ``handleUpdate``
 (:329-385), including the documented quirks:

@@ -175,7 +175,7 @@ def attach_live_bridge(bullet, sim, peer: int = 0):
     puts at ``peer``. The hook rides ``_apply_update`` (the single point
     every resolved write passes through, twin of bullet.js:184-220), so
     the engine mirror follows the db's post-CRT state: a wire-connected
-    peer (bullet-js interop included) becomes a TPU-resident replica.
+    peer (bullet-js interop included) becomes a device-resident replica.
 
     Semantics: dict values decompose into leaf puts like the sync wire
     format (bullet-network-sync.js:592-646) — the mirror is leaf-merge,

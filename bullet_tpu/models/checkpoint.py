@@ -26,7 +26,7 @@ def save_checkpoint(sim, directory: str, backend: str = "npz") -> None:
     the arrays are captured — load replays the interner to its CURRENT
     ranks, so saving stale khi/klo would permanently corrupt string order
     keys after restore."""
-    if any(sim._pending) or sim._pending_bulk or sim._staged_apply:
+    if any(sim._pending) or sim._pending_bulk:
         sim.step(rounds=0)
     sim._sync_device_state()
     os.makedirs(directory, exist_ok=True)

@@ -21,7 +21,7 @@ db/middleware). The engine's write path is a *batch* — ops enter as dense
   ingress, get/afterGet hooks wrap reads, afterPut hooks + the "write" event
   fire after the step applies the batch, and *pure traced transforms*
   (``use_traced_put``) run inside the jitted step over the whole encoded
-  OpBatch — the TPU-native rendering of a put-middleware that must touch
+  OpBatch — the engine's rendering of a put-middleware that must touch
   every op at line rate.
 """
 

@@ -23,7 +23,7 @@ _SRCS = [
 _LIB = os.path.join(_HERE, "libbulletnative.so")
 # must match bulkops.cpp::bk_abi_version — bump together on any exported
 # signature change
-_ABI_VERSION = 2
+_ABI_VERSION = 3
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -199,14 +199,12 @@ def load() -> Optional[ctypes.CDLL]:
         lib.bk_group_positions.argtypes = [c_vp, c_i64, c_i32, c_vp, c_vp]
         lib.bk_number_keys.argtypes = [c_vp, c_i64, c_vp, c_vp, c_vp]
         lib.bk_reduce_flat_ops.argtypes = [
-            c_vp, c_vp, c_vp, c_vp, c_vp, c_vp, c_i64,
-            c_i32, c_i64, c_i64, c_i32, c_i64,
+            c_vp, c_vp, c_vp, c_vp, c_vp, c_vp, c_i64, c_i32, c_i64,
             c_vp, c_vp, c_vp, c_vp, c_vp,
         ]
         lib.bk_reduce_flat_ops.restype = c_i64
         lib.bk_reduce_flat_ops_rank.argtypes = [
-            c_vp, c_vp, c_vp, c_vp, c_i64,
-            c_i32, c_i64, c_i64, c_i32,
+            c_vp, c_vp, c_vp, c_vp, c_i64, c_i32,
             c_vp, c_vp, c_vp, c_vp,
         ]
         lib.bk_reduce_flat_ops_rank.restype = c_i64
@@ -266,11 +264,10 @@ def number_keys(values):
     return khi, klo, raw
 
 
-def reduce_flat_ops(peer, slot, cls, khi, klo, vid, bn, nb, cv_shift,
-                    vid_mask):
+def reduce_flat_ops(peer, slot, cls, khi, klo, vid, cv_shift, vid_mask):
     """Native radix-sort + grouped-lexmax twin of the numpy reduction in
-    ops/packed.py::reduce_flat_ops. ``bn > 0`` selects block-major winner
-    order (blocked-apply mode); returns the 5-tuple of winner arrays, None
+    ops/packed.py::reduce_flat_ops: winners ascending by (peer, slot);
+    returns the 5-tuple of winner arrays, None
     for an all-filtered batch (caller returns None), or NotImplemented when
     the library is unavailable (caller falls back to numpy)."""
     import numpy as np
@@ -285,9 +282,6 @@ def reduce_flat_ops(peer, slot, cls, khi, klo, vid, bn, nb, cv_shift,
     n = lib.bk_reduce_flat_ops(
         *(a.ctypes.data_as(ctypes.c_void_p) for a in arrs),
         ctypes.c_int64(k),
-        ctypes.c_int32(1 if bn > 0 else 0),
-        ctypes.c_int64(max(bn, 1)),
-        ctypes.c_int64(max(nb, 1)),
         ctypes.c_int32(cv_shift),
         ctypes.c_int64(vid_mask),
         *(o.ctypes.data_as(ctypes.c_void_p) for o in outs),
@@ -297,7 +291,7 @@ def reduce_flat_ops(peer, slot, cls, khi, klo, vid, bn, nb, cv_shift,
     return tuple(o[:n] for o in outs)
 
 
-def reduce_flat_ops_rank(peer, slot, rank, cv, bn, nb, cv_shift):
+def reduce_flat_ops_rank(peer, slot, rank, cv, cv_shift):
     """Native twin of ops/rank.py::reduce_flat_ops_rank's numpy path (one
     fused int64 winner key per (peer, slot) group). Same return contract
     as reduce_flat_ops: 4-tuple of winner arrays, None for an all-filtered
@@ -314,9 +308,6 @@ def reduce_flat_ops_rank(peer, slot, rank, cv, bn, nb, cv_shift):
     n = lib.bk_reduce_flat_ops_rank(
         *(a.ctypes.data_as(ctypes.c_void_p) for a in arrs),
         ctypes.c_int64(k),
-        ctypes.c_int32(1 if bn > 0 else 0),
-        ctypes.c_int64(max(bn, 1)),
-        ctypes.c_int64(max(nb, 1)),
         ctypes.c_int32(cv_shift),
         *(o.ctypes.data_as(ctypes.c_void_p) for o in outs),
     )

@@ -22,8 +22,7 @@ struct OpRow {
 };
 
 // LSD radix sort by pslot, 16-bit digits, low passes only up to the key's
-// actual bit width (pslot is block-major < 2^31 in block mode, < 2^42
-// generic). Stable and ascending — the same order np.argsort(pslot) gives,
+// actual bit width (pslot = peer * stride + slot). Stable and ascending — the same order np.argsort(pslot) gives,
 // and group identity is all the downstream scan needs.
 void radix_by_pslot(std::vector<OpRow>& rows, uint64_t max_key) {
   std::vector<OpRow> tmp(rows.size());
@@ -40,6 +39,13 @@ void radix_by_pslot(std::vector<OpRow>& rows, uint64_t max_key) {
     for (const OpRow& r : rows) tmp[count[(r.pslot >> shift) & 0xFFFF]++] = r;
     rows.swap(tmp);
   }
+}
+
+uint64_t max_slot_plus_one(const int32_t* slot, int64_t k) {
+  int32_t max_slot = 0;
+  for (int64_t i = 0; i < k; ++i)
+    if (slot[i] > max_slot) max_slot = slot[i];
+  return static_cast<uint64_t>(max_slot) + 1;
 }
 
 }  // namespace
@@ -91,42 +97,27 @@ void bk_number_keys(const double* vals, int64_t k, int32_t* khi,
 // emitted ascending by the fused pslot key — bit-identical to the numpy
 // argsort+reduceat path in ops/packed.py::reduce_flat_ops (same fused-key
 // construction: k1 = cls<<32 | khi+2^31 compared first, k2 =
-// (klo+2^31)<<cv_shift | vid among k1-maximal rows; same block-major key
-// when block mode is on). Returns the winner count; outputs may alias the
+// (klo+2^31)<<cv_shift | vid among k1-maximal rows). Returns the winner count; outputs may alias the
 // op count in capacity (n_out <= k always).
 int64_t bk_reduce_flat_ops(const int32_t* peer, const int32_t* slot,
                            const int32_t* cls, const int32_t* khi,
                            const int32_t* klo, const int32_t* vid, int64_t k,
-                           int32_t block_mode, int64_t bn, int64_t nb,
                            int32_t cv_shift, int64_t vid_mask,
                            int32_t* peer_w, int32_t* slot_w, int32_t* khi_w,
                            int32_t* klo_w, int32_t* cv_w) {
   const int64_t bias = int64_t(1) << 31;
-  // Generic mode sorts by peer*stride + slot instead of peer<<32 | slot:
-  // identical lexicographic (peer, slot) order, but the tighter key usually
-  // drops one 16-bit radix pass (e.g. 30 bits at P=1024 x N=1M vs 42).
-  uint64_t stride = 1;
-  if (!block_mode) {
-    int32_t max_slot = 0;
-    for (int64_t i = 0; i < k; ++i)
-      if (slot[i] > max_slot) max_slot = slot[i];
-    stride = static_cast<uint64_t>(max_slot) + 1;
-  }
+  // Sort by peer*stride + slot instead of peer<<32 | slot: identical
+  // lexicographic (peer, slot) order, but the tighter key usually drops one
+  // 16-bit radix pass (e.g. 30 bits at P=1024 x N=1M vs 42).
+  const uint64_t stride = max_slot_plus_one(slot, k);
   std::vector<OpRow> rows;
   rows.reserve(static_cast<size_t>(k));
   uint64_t max_key = 0;
   for (int64_t i = 0; i < k; ++i) {
     if (cls[i] <= 0) continue;  // cls>0 keep-filter (padding never wins)
-    uint64_t ps;
-    if (block_mode) {
-      int64_t p = peer[i], s = slot[i];
-      uint64_t block = static_cast<uint64_t>((p >> 3) * nb + s / bn);
-      ps = (block << 14) | (static_cast<uint64_t>(p & 7) << 11) |
-           static_cast<uint64_t>(s % bn);
-    } else {
-      ps = static_cast<uint64_t>(static_cast<uint32_t>(peer[i])) * stride +
-           static_cast<uint32_t>(slot[i]);
-    }
+    uint64_t ps =
+        static_cast<uint64_t>(static_cast<uint32_t>(peer[i])) * stride +
+        static_cast<uint32_t>(slot[i]);
     if (ps > max_key) max_key = ps;
     int64_t k1 = (static_cast<int64_t>(cls[i]) << 32) | (khi[i] + bias);
     int64_t k2 = ((klo[i] + bias) << cv_shift) | static_cast<int64_t>(vid[i]);
@@ -142,14 +133,8 @@ int64_t bk_reduce_flat_ops(const int32_t* peer, const int32_t* slot,
     khi_w[at] = static_cast<int32_t>((m1 & 0xFFFFFFFFll) - bias);
     klo_w[at] = static_cast<int32_t>((m2 >> cv_shift) - bias);
     cv_w[at] = static_cast<int32_t>((cls_w << cv_shift) | (m2 & vid_mask));
-    if (block_mode) {
-      uint64_t blk = key >> 14;
-      peer_w[at] = static_cast<int32_t>((blk / nb) * 8 + ((key >> 11) & 7));
-      slot_w[at] = static_cast<int32_t>((blk % nb) * bn + (key & 0x7FF));
-    } else {
-      peer_w[at] = static_cast<int32_t>(key / stride);
-      slot_w[at] = static_cast<int32_t>(key % stride);
-    }
+    peer_w[at] = static_cast<int32_t>(key / stride);
+    slot_w[at] = static_cast<int32_t>(key % stride);
   };
   for (const OpRow& r : rows) {
     if (r.pslot != cur) {
@@ -176,32 +161,18 @@ int64_t bk_reduce_flat_ops(const int32_t* peer, const int32_t* slot,
 // class bits (cv>>cv_shift > 0; rank 0 rows are absent padding).
 int64_t bk_reduce_flat_ops_rank(const int32_t* peer, const int32_t* slot,
                                 const int32_t* rank, const int32_t* cv,
-                                int64_t k, int32_t block_mode, int64_t bn,
-                                int64_t nb, int32_t cv_shift,
+                                int64_t k, int32_t cv_shift,
                                 int32_t* peer_w, int32_t* slot_w,
                                 int32_t* rank_w, int32_t* cv_w) {
-  uint64_t stride = 1;
-  if (!block_mode) {
-    int32_t max_slot = 0;
-    for (int64_t i = 0; i < k; ++i)
-      if (slot[i] > max_slot) max_slot = slot[i];
-    stride = static_cast<uint64_t>(max_slot) + 1;
-  }
+  const uint64_t stride = max_slot_plus_one(slot, k);
   std::vector<OpRow> rows;
   rows.reserve(static_cast<size_t>(k));
   uint64_t max_key = 0;
   for (int64_t i = 0; i < k; ++i) {
     if ((cv[i] >> cv_shift) <= 0) continue;
-    uint64_t ps;
-    if (block_mode) {
-      int64_t p = peer[i], s = slot[i];
-      uint64_t block = static_cast<uint64_t>((p >> 3) * nb + s / bn);
-      ps = (block << 14) | (static_cast<uint64_t>(p & 7) << 11) |
-           static_cast<uint64_t>(s % bn);
-    } else {
-      ps = static_cast<uint64_t>(static_cast<uint32_t>(peer[i])) * stride +
-           static_cast<uint32_t>(slot[i]);
-    }
+    uint64_t ps =
+        static_cast<uint64_t>(static_cast<uint32_t>(peer[i])) * stride +
+        static_cast<uint32_t>(slot[i]);
     if (ps > max_key) max_key = ps;
     int64_t w = (static_cast<int64_t>(rank[i]) << 32) |
                 static_cast<uint32_t>(cv[i]);
@@ -215,14 +186,8 @@ int64_t bk_reduce_flat_ops_rank(const int32_t* peer, const int32_t* slot,
   auto emit = [&](int64_t at, uint64_t key) {
     rank_w[at] = static_cast<int32_t>(m1 >> 32);
     cv_w[at] = static_cast<int32_t>(m1 & 0xFFFFFFFFll);
-    if (block_mode) {
-      uint64_t blk = key >> 14;
-      peer_w[at] = static_cast<int32_t>((blk / nb) * 8 + ((key >> 11) & 7));
-      slot_w[at] = static_cast<int32_t>((blk % nb) * bn + (key & 0x7FF));
-    } else {
-      peer_w[at] = static_cast<int32_t>(key / stride);
-      slot_w[at] = static_cast<int32_t>(key % stride);
-    }
+    peer_w[at] = static_cast<int32_t>(key / stride);
+    slot_w[at] = static_cast<int32_t>(key % stride);
   };
   for (const OpRow& r : rows) {
     if (r.pslot != cur) {
@@ -243,7 +208,7 @@ int64_t bk_reduce_flat_ops_rank(const int32_t* peer, const int32_t* slot,
 // rejects mismatches and rebuilds — a name-only probe let a stale .so with
 // the old 16-arg bk_rank_insert_batch receive the new 17-arg call, writing
 // new_ranks into the sranks pool and leaving the caller's array garbage.
-extern "C" int32_t bk_abi_version() { return 2; }
+extern "C" int32_t bk_abi_version() { return 3; }
 
 // Single-pass sort-merge twin of ops/rank.py::RankIndex.insert_batch's
 // numpy chain (searchsorted x3 + lexsort + np.insert x3 + gap spread +

@@ -1,11 +1,9 @@
-from .merge import TableState, init_table, merge_tables, merge_tables_pallas, merge_tables_xla
+from .merge import TableState, init_table, merge_tables_xla
 from .apply import OpBatch, apply_ops
 
 __all__ = [
     "TableState",
     "init_table",
-    "merge_tables",
-    "merge_tables_pallas",
     "merge_tables_xla",
     "OpBatch",
     "apply_ops",

@@ -11,15 +11,13 @@ tables is a pure elementwise winner-select under a total order:
   Lamport last-writer-wins (the documented fix of quirk Q2).
 
 Both are associative/commutative/idempotent ⇒ gossip order cannot change the
-fixed point. Two implementations: a pure-XLA fallback (fuses fine anywhere)
-and a Pallas TPU kernel that streams all 7 field pairs through VMEM in one
-pass and accumulates the per-block changed-entry count on the fly (the
-convergence residual), saving a second pass over HBM.
+fixed point. The merge is an int32 compare-and-select with a fused
+changed-entry count (the convergence residual); XLA fuses both into one
+memory-bound pass.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import jax
@@ -73,7 +71,7 @@ def lex_gt(a_keys: Sequence[jax.Array], b_keys: Sequence[jax.Array]) -> jax.Arra
 def merge_tables_xla(
     a: TableState, b: TableState, mode: str = "reference"
 ) -> Tuple[TableState, jax.Array]:
-    """XLA reference implementation: winner-select + changed count.
+    """Winner-select + changed count.
 
     ``changed`` counts entries where ``b`` strictly beat ``a`` — exactly the
     entries a real peer would have applied (``doUpdate``), and the gossip
@@ -82,116 +80,3 @@ def merge_tables_xla(
     take_b = lex_gt(priority_keys(b, mode), priority_keys(a, mode))
     merged = TableState(*(jnp.where(take_b, fb, fa) for fa, fb in zip(a, b)))
     return merged, jnp.sum(take_b.astype(jnp.int32))
-
-
-# --------------------------------------------------------------------- pallas
-
-
-def _merge_kernel(mode: str, *refs):
-    """Pallas kernel body: 14 inputs (a fields, b fields), 8 outputs
-    (merged fields + accumulated changed count).
-
-    The TPU grid executes sequentially, so the residual accumulates into a
-    single SMEM scalar: program (0,0) zeroes it, every program adds its
-    block's strict-win count."""
-    import jax.experimental.pallas as pl
-
-    a_refs, b_refs = refs[:7], refs[7:14]
-    out_refs, count_ref = refs[14:21], refs[21]
-
-    a_vals = [r[...] for r in a_refs]
-    b_vals = [r[...] for r in b_refs]
-
-    def keys(vals):
-        cls, khi, klo, vid, writer, ctr, _tick = vals
-        if mode == "reference":
-            return (cls, khi, klo, vid, writer, ctr)
-        return (ctr, cls, khi, klo, vid, writer)
-
-    a_keys, b_keys = keys(a_vals), keys(b_vals)
-    gt = jnp.zeros_like(a_vals[0], dtype=jnp.bool_)
-    eq = jnp.ones_like(a_vals[0], dtype=jnp.bool_)
-    for ka, kb in zip(a_keys, b_keys):
-        gt = gt | (eq & (kb > ka))
-        eq = eq & (ka == kb)
-
-    for out, va, vb in zip(out_refs, a_vals, b_vals):
-        out[...] = jnp.where(gt, vb, va)
-
-    first = (pl.program_id(0) == 0) & (pl.program_id(1) == 0)
-
-    @pl.when(first)
-    def _():
-        count_ref[0, 0] = 0
-
-    count_ref[0, 0] += jnp.sum(gt.astype(jnp.int32))
-
-
-def _pick_tiles(p: int, n: int) -> Tuple[int, int]:
-    """Block shape: lane-aligned slot tiles, sized so that 21 buffers
-    (14 in + 7 out) double-buffered stay well under the ~16 MB VMEM budget:
-    cap tile at 32K int32 elements (128 KB) → ~5.4 MB total."""
-
-    def best(total, target, align):
-        if total <= target:
-            return total
-        t = target
-        while t > align and total % t:
-            t -= align
-        return t if total % t == 0 else total
-
-    tile_n = best(n, 4096, 128)
-    tile_p = best(p, max(1, (1 << 15) // max(tile_n, 1)), 8)
-    return tile_p, tile_n
-
-
-@functools.partial(jax.jit, static_argnames=("mode", "interpret"))
-def merge_tables_pallas(
-    a: TableState, b: TableState, mode: str = "reference", interpret: bool = False
-) -> Tuple[TableState, jax.Array]:
-    """Pallas TPU kernel: one fused pass over all 14 input streams.
-
-    HBM traffic is the whole cost (no FLOPs to speak of): 14 reads + 7
-    writes of [P, N] int32 — the kernel exists to guarantee the single-pass
-    fusion plus the fused residual reduction.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p, n = a.cls.shape
-    tile_p, tile_n = _pick_tiles(p, n)
-    grid = (p // tile_p, n // tile_n)
-
-    data_spec = pl.BlockSpec(
-        (tile_p, tile_n), lambda i, j: (i, j), memory_space=pltpu.VMEM
-    )
-    count_spec = pl.BlockSpec((1, 1), lambda i, j: (0, 0), memory_space=pltpu.SMEM)
-
-    out_shapes = tuple(
-        jax.ShapeDtypeStruct((p, n), jnp.int32) for _ in range(7)
-    ) + (jax.ShapeDtypeStruct((1, 1), jnp.int32),)
-
-    outs = pl.pallas_call(
-        functools.partial(_merge_kernel, mode),
-        grid=grid,
-        in_specs=[data_spec] * 14,
-        out_specs=tuple([data_spec] * 7) + (count_spec,),
-        out_shape=out_shapes,
-        interpret=interpret,
-    )(*a, *b)
-    merged = TableState(*outs[:7])
-    return merged, outs[7][0, 0]
-
-
-def merge_tables(
-    a: TableState,
-    b: TableState,
-    mode: str = "reference",
-    use_pallas: bool | None = None,
-) -> Tuple[TableState, jax.Array]:
-    """Dispatch: Pallas on TPU, XLA elsewhere (or force with ``use_pallas``)."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        return merge_tables_pallas(a, b, mode=mode)
-    return merge_tables_xla(a, b, mode=mode)

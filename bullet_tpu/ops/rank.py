@@ -25,16 +25,15 @@ never win a merge (the packed-family invariant). Converged states are
 bit-identical to the packed layout modulo the khi/klo → rank projection
 (tested by mapping results back through the vid).
 
-All gossip/frontier/reconcile kernels are SHARED with ops.packed — the
-kernel zoo is layout-generic (keyed through packed.table_keys, which
-dispatches on the field-tuple arity). This module adds what is genuinely
-rank-specific: the layout type, the host rank maintenance (gap ranks with
-even-respread + device re-key), the op pre-reduction, and the flat apply.
+All gossip/reconcile/window programs are SHARED with ops.packed — they
+are layout-generic (keyed through packed.table_keys, which dispatches on
+the field-tuple arity). This module adds what is genuinely rank-specific:
+the layout type, the host rank maintenance (gap ranks with even-respread +
+device re-key), the op pre-reduction, and the flat apply.
 
-Wins vs packed: single-round gossip moves 16 B/entry/round instead of 24
-(DMA-bound paths ~1.5×), and a fused neighbor-merge is a 2-key lexmax
-instead of 4 (~2× fewer VPU ops on the compute-bound fused paths). The
-north-star table shrinks 12.9 GB → 8.6 GB.
+Against packed, a gossip round moves 16 B/entry instead of 24 and a
+neighbor merge is a 1-key compare instead of 4. The north-star table
+shrinks 12.9 GB → 8.6 GB.
 
 Rank1Table goes one further: the rank alone, 4 B/entry (see its class
 docstring) — cv decoding moves to the RankIndex inverse at read time.
@@ -63,7 +62,7 @@ RANK_SPAN = (1 << 31) - 1  # usable rank space: [1, 2^31 - 1]
 class RankTable(NamedTuple):
     """Reference-mode replica tables at 8 B/entry (see module docstring).
 
-    Field order matters: cv must be LAST (the shared kernels' presence
+    Field order matters: cv must be LAST (the shared programs' presence
     guard reads cls from ``fields[-1] >> 28``) and the tuple arity (2)
     selects the (rank, cv) key chain in packed.table_keys.
     """
@@ -79,9 +78,9 @@ class Rank1Table(NamedTuple):
     The rank is a BIJECTION over live entries (RankIndex gives every vid a
     distinct rank in (cls, khi, klo, vid) order), so the rank alone IS the
     entry: a merge is one int32 compare + one select, a gossip round moves
-    8 B/entry of HBM instead of 16, and the fused stripe fits twice the
-    peers in VMEM. Rank 0 = absent (live ranks ≥ 1), which doubles as the
-    padding-never-wins invariant — no presence bits needed.
+    8 B/entry of device memory instead of 16. Rank 0 = absent (live ranks
+    ≥ 1), which doubles as the padding-never-wins invariant — no presence
+    bits needed.
 
     What the 2-array layout kept cv for — decoding vid at read time —
     moves to an inverse lookup through the RankIndex: sorted live ranks ↔
@@ -272,15 +271,14 @@ def apply_flat_rank1_stacked(
     return apply_flat_rank1(table, peer, slot, rank)
 
 
-def reduce_flat_ops_rank(peer, slot, rank, cv, block_shape=None):
+def reduce_flat_ops_rank(peer, slot, rank, cv):
     """Host-side lattice pre-reduction on rank ops: keep the (rank, cv)-max
-    op per (peer, slot).
+    op per (peer, slot), winners ascending by (peer, slot).
 
     The rank layout's win is visible here too: the winner key fuses into
     ONE int64 (rank·2^32 | cv — both fields are non-negative int32), so a
     single argsort + one maximum.reduceat replaces the packed path's two
-    fused-key passes. ``block_shape=(p, n)`` emits winners in the blocked
-    apply's (8, 128)-block-major order, as reduce_flat_ops does.
+    fused-key passes.
 
     The native radix+scan pass (native.reduce_flat_ops_rank) runs first
     when available; this numpy body is the bit-identical fallback
@@ -288,15 +286,7 @@ def reduce_flat_ops_rank(peer, slot, rank, cv, block_shape=None):
     survives."""
     from .. import native
 
-    if block_shape is not None:
-        from .packed import _CG_BN
-
-        nat_bn, nat_nb = _CG_BN, block_shape[1] // _CG_BN
-    else:
-        nat_bn = nat_nb = 0
-    fast = native.reduce_flat_ops_rank(
-        peer, slot, rank, cv, nat_bn, nat_nb, CV_SHIFT
-    )
+    fast = native.reduce_flat_ops_rank(peer, slot, rank, cv, CV_SHIFT)
     if fast is not NotImplemented:
         return fast
 
@@ -306,20 +296,7 @@ def reduce_flat_ops_rank(peer, slot, rank, cv, block_shape=None):
     )
     if peer.size == 0:
         return None
-    if block_shape is not None:
-        from .packed import _CG_BN as bn
-
-        p, n = block_shape
-        nb = n // bn
-        block = (peer.astype(np.int64) >> 3) * nb + slot.astype(np.int64) // bn
-        pslot = (
-            (block << 14)
-            | ((peer.astype(np.int64) & 7) << 11)
-            | (slot.astype(np.int64) % bn)
-        )
-    else:
-        bn = nb = 0
-        pslot = (peer.astype(np.int64) << 32) | slot.astype(np.int64)
+    pslot = (peer.astype(np.int64) << 32) | slot.astype(np.int64)
     wkey = (rank.astype(np.int64) << 32) | cv.astype(np.int64)
     order = np.argsort(pslot)
     ps = pslot[order]
@@ -331,13 +308,8 @@ def reduce_flat_ops_rank(peer, slot, rank, cv, block_shape=None):
     rank_w = (wmax >> 32).astype(np.int32)
     cv_w = (wmax & np.int64(0xFFFFFFFF)).astype(np.int32)
     keys = ps[starts]
-    if block_shape is not None:
-        blk = keys >> 14
-        peer_w = ((blk // nb) * 8 + ((keys >> 11) & 7)).astype(np.int32)
-        slot_w = ((blk % nb) * bn + (keys & np.int64(0x7FF))).astype(np.int32)
-    else:
-        peer_w = (keys >> 32).astype(np.int32)
-        slot_w = (keys & np.int64(0xFFFFFFFF)).astype(np.int32)
+    peer_w = (keys >> 32).astype(np.int32)
+    slot_w = (keys & np.int64(0xFFFFFFFF)).astype(np.int32)
     return peer_w, slot_w, rank_w, cv_w
 
 

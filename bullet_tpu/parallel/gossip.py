@@ -1,6 +1,6 @@
 """Gossip rounds: topology-shaped neighbor exchange + semilattice merge.
 
-The TPU-native replacement for the reference's async TTL flood
+The engine's replacement for the reference's async TTL flood
 (/root/reference/src/bullet-network.js:378-418) and chunked anti-entropy
 sync (bullet-network-sync.js): one synchronous round delivers every peer the
 merge of its neighbors' tables. Because the merge is a join-semilattice
@@ -8,9 +8,14 @@ merge of its neighbors' tables. Because the merge is a join-semilattice
 deterministically.
 
 Fast paths lower to collective-friendly ops (``jnp.roll`` on a sharded peer
-axis becomes an ICI collective-permute under pjit; recursive doubling is the
+axis becomes a collective-permute under pjit; recursive doubling is the
 classic all-reduce shape). The generic path gathers by a neighbor-index
 matrix — XLA turns the cross-shard gathers into collectives.
+
+``lean`` rounds (reference mode) exchange only the four value-key arrays
+(cls, khi, klo, vid): writer/ctr/tick keep their locally written values,
+matching the reference's receive-side metadata reset (meta.source becomes
+"network", bullet.js:198-203).
 """
 
 from __future__ import annotations
@@ -35,30 +40,46 @@ def _mask_rows(table: TableState, valid: jax.Array) -> TableState:
     return TableState(*(jnp.where(valid, f, jnp.zeros_like(f)) for f in table))
 
 
-def _merge(a: TableState, b: TableState, mode: str) -> Tuple[TableState, jax.Array]:
-    return merge_tables_xla(a, b, mode)
+def _merge(
+    a: TableState, b: TableState, mode: str, lean: bool = False
+) -> Tuple[TableState, jax.Array]:
+    if not lean:
+        return merge_tables_xla(a, b, mode)
+    keys = lambda t: (t.cls, t.khi, t.klo, t.vid)
+    take_b = lex_gt(keys(b), keys(a))
+    merged = a._replace(
+        **{f: jnp.where(take_b, getattr(b, f), getattr(a, f))
+           for f in ("cls", "khi", "klo", "vid")}
+    )
+    return merged, jnp.sum(take_b.astype(jnp.int32))
 
 
-def gossip_round_ring(table: TableState, mode: str) -> Tuple[TableState, jax.Array]:
+def gossip_round_ring(
+    table: TableState, mode: str, lean: bool = False
+) -> Tuple[TableState, jax.Array]:
     """Ring: receive from both neighbors (each peer has 2, matching the
     circle example's wiring)."""
-    m1, c1 = _merge(table, _roll(table, 1), mode)
-    m2, c2 = _merge(m1, _roll(table, -1), mode)
+    m1, c1 = _merge(table, _roll(table, 1), mode, lean)
+    m2, c2 = _merge(m1, _roll(table, -1), mode, lean)
     return m2, c1 + c2
 
 
-def gossip_round_chain(table: TableState, mode: str) -> Tuple[TableState, jax.Array]:
+def gossip_round_chain(
+    table: TableState, mode: str, lean: bool = False
+) -> Tuple[TableState, jax.Array]:
     """Chain: ring shifts with the wrap-around rows masked out."""
     num_peers = table.cls.shape[0]
     rows = jnp.arange(num_peers)
     from_left = _mask_rows(_roll(table, 1), rows >= 1)
     from_right = _mask_rows(_roll(table, -1), rows < num_peers - 1)
-    m1, c1 = _merge(table, from_left, mode)
-    m2, c2 = _merge(m1, from_right, mode)
+    m1, c1 = _merge(table, from_left, mode, lean)
+    m2, c2 = _merge(m1, from_right, mode, lean)
     return m2, c1 + c2
 
 
-def gossip_round_mesh(table: TableState, mode: str) -> Tuple[TableState, jax.Array]:
+def gossip_round_mesh(
+    table: TableState, mode: str, lean: bool = False
+) -> Tuple[TableState, jax.Array]:
     """Full mesh: one round makes everyone equal. Recursive doubling —
     ceil(log2 P) shifted merges; idempotence makes the overlap harmless.
     fori_loop over the doubling steps for the same compile-time reason as
@@ -70,7 +91,7 @@ def gossip_round_mesh(table: TableState, mode: str) -> Tuple[TableState, jax.Arr
         tbl, total = carry
         shift = jnp.left_shift(jnp.int32(1), k)
         rolled = TableState(*(jnp.roll(f, shift, axis=0) for f in tbl))
-        tbl, c = _merge(tbl, rolled, mode)
+        tbl, c = _merge(tbl, rolled, mode, lean)
         return tbl, total + c
 
     table, total = jax.lax.fori_loop(0, steps, body, (table, jnp.int32(0)))
@@ -78,7 +99,7 @@ def gossip_round_mesh(table: TableState, mode: str) -> Tuple[TableState, jax.Arr
 
 
 def gossip_round_generic(
-    table: TableState, neighbors: jax.Array, mode: str
+    table: TableState, neighbors: jax.Array, mode: str, lean: bool = False
 ) -> Tuple[TableState, jax.Array]:
     """Arbitrary adjacency: gather each neighbor column and merge.
 
@@ -95,7 +116,7 @@ def gossip_round_generic(
         safe = jnp.where(valid, idx, 0)
         gathered = TableState(*(f[safe] for f in tbl))
         gathered = _mask_rows(gathered, valid)
-        tbl, c = _merge(tbl, gathered, mode)
+        tbl, c = _merge(tbl, gathered, mode, lean)
         return tbl, total + c
 
     table, total = jax.lax.fori_loop(
@@ -104,67 +125,43 @@ def gossip_round_generic(
     return table, total
 
 
-@functools.partial(jax.jit, static_argnames=("kind", "mode"))
-def _gossip_round_jit(table, neighbors, kind: str, mode: str):
+@functools.partial(jax.jit, static_argnames=("kind", "mode", "lean"))
+def _gossip_round_jit(table, neighbors, kind: str, mode: str, lean: bool):
     if kind == "ring":
-        return gossip_round_ring(table, mode)
+        return gossip_round_ring(table, mode, lean)
     if kind == "chain":
-        return gossip_round_chain(table, mode)
+        return gossip_round_chain(table, mode, lean)
     if kind == "mesh":
-        return gossip_round_mesh(table, mode)
-    return gossip_round_generic(table, neighbors, mode)
+        return gossip_round_mesh(table, mode, lean)
+    return gossip_round_generic(table, neighbors, mode, lean)
 
 
 def gossip_round(
     table: TableState,
     topology: Topology,
     mode: str = "reference",
-    use_pallas: bool | None = None,
     mesh=None,
     lean: bool = False,
 ) -> Tuple[TableState, jax.Array]:
     """One synchronous gossip round; returns (table, changed_count).
 
-    Dispatch: on a single TPU device, ring/chain rounds use the fused Pallas
-    kernel (one read + one write per entry); with a mesh provided, EVERY
-    topology has an explicit shard_map SPMD path (ppermute boundary rows for
-    ring/chain, recursive-doubling ppermute for mesh, lattice all-reduce for
-    star, masked all_gather for generic adjacencies); otherwise the XLA path
-    (collectives inferred by XLA when the table is sharded)."""
+    With a mesh provided, EVERY topology has an explicit shard_map SPMD
+    path (ppermute boundary rows for ring/chain, recursive-doubling
+    ppermute for mesh, lattice all-reduce for star, masked all_gather for
+    generic adjacencies); otherwise the XLA path (collectives inferred by
+    XLA when the table is sharded)."""
     if mesh is not None:
         from .shardmap_gossip import shardmap_round
 
         return shardmap_round(table, topology, mesh, mode=mode)
-    if use_pallas is None:
-        use_pallas = (
-            jax.default_backend() == "tpu"
-            and topology.kind in ("ring", "chain")
-            and len(table.cls.devices()) == 1
-        )
-    if use_pallas and topology.kind in ("ring", "chain"):
-        from ..ops.ring_kernel import (
-            lean_supported,
-            ring_round_pallas,
-            ring_round_pallas_lean,
-            ring_round_supported,
-        )
-
-        p, n = table.cls.shape
-        if lean and mode == "reference" and lean_supported(p, n):
-            return ring_round_pallas_lean(table, wrap=topology.kind == "ring")
-        if ring_round_supported(table):
-            return ring_round_pallas(
-                table, mode=mode, wrap=topology.kind == "ring"
-            )
     neighbors = jnp.asarray(topology.neighbors)
-    return _gossip_round_jit(table, neighbors, topology.kind, mode)
+    return _gossip_round_jit(table, neighbors, topology.kind, mode, lean)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "kind", "mode", "max_rounds", "use_pallas", "lean", "spmd_mesh",
-        "topo_name", "hub",
+        "kind", "mode", "max_rounds", "lean", "spmd_mesh", "topo_name", "hub",
     ),
 )
 def gossip_until_converged_device(
@@ -173,7 +170,6 @@ def gossip_until_converged_device(
     kind: str,
     mode: str,
     max_rounds: int,
-    use_pallas: bool = False,
     lean: bool = False,
     spmd_mesh=None,
     topo_name: str = "",
@@ -181,8 +177,7 @@ def gossip_until_converged_device(
 ) -> Tuple[TableState, jax.Array]:
     """Run rounds on-device until the residual hits zero (bounded by
     ``max_rounds``) — no host round-trips, one compiled while_loop. With
-    ``use_pallas`` the loop body is the fused ring/chain kernel; with
-    ``spmd_mesh`` it is the explicit shard_map collective round."""
+    ``spmd_mesh`` the body is the explicit shard_map collective round."""
 
     def round_fn(tbl):
         if spmd_mesh is not None:
@@ -202,18 +197,7 @@ def gossip_until_converged_device(
             if topo_name == "star":
                 return star_round_shardmap(tbl, spmd_mesh, mode=mode, hub=hub)
             return generic_round_shardmap(tbl, neighbors, spmd_mesh, mode=mode)
-        if use_pallas and kind in ("ring", "chain"):
-            from ..ops.ring_kernel import (
-                lean_supported,
-                ring_round_pallas,
-                ring_round_pallas_lean,
-            )
-
-            p, n = tbl.cls.shape
-            if lean and mode == "reference" and lean_supported(p, n):
-                return ring_round_pallas_lean(tbl, wrap=kind == "ring")
-            return ring_round_pallas(tbl, mode=mode, wrap=kind == "ring")
-        return _gossip_round_jit(tbl, neighbors, kind, mode)
+        return _gossip_round_jit(tbl, neighbors, kind, mode, lean)
 
     def cond(state):
         _, rounds, last_changed = state

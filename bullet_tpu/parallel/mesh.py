@@ -4,7 +4,7 @@ The simulated-peer axis (leading axis of every table array) shards over a
 1-D ``jax.sharding.Mesh`` — the engine's equivalent of the reference's
 one-OS-process-per-peer deployment (SURVEY §2 "Parallelism"). Everything
 downstream is ordinary jit: ``jnp.roll``/gathers over the sharded axis lower
-to ICI collective-permutes / all-gathers; nothing in the step functions is
+to collective-permutes / all-gathers; nothing in the step functions is
 mesh-aware. Multi-host extends the same mesh over DCN via
 ``jax.distributed.initialize`` — same code path.
 """

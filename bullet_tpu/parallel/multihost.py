@@ -1,10 +1,10 @@
 """Multi-host (DCN) support.
 
-One process per host, each seeing its local TPU devices;
+One process per host, each seeing its local devices;
 ``jax.distributed.initialize`` stitches them into one global device list, and
-the same 1-D peer mesh then spans hosts — gossip shifts ride ICI within a
-host and DCN across hosts, with no engine code changes (the design SURVEY §2
-calls the NCCL/MPI-equivalent slot).
+the same 1-D peer mesh then spans hosts — gossip shifts ride the intra-host
+links within a host and the network across hosts, with no engine code
+changes (the design SURVEY §2 calls the NCCL/MPI-equivalent slot).
 
 Typical launch (same script on every host):
 

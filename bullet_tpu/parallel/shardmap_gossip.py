@@ -6,13 +6,14 @@ alternative — per-shard local compute plus hand-placed collectives — the
 pattern SURVEY §2 names as the NCCL-equivalent slot:
 
 * ring/chain — ``ppermute`` of exactly the boundary rows (one peer row per
-  direction per device; minimal ICI payload by construction).
+  direction per device; minimal collective payload by construction). The
+  window variant exchanges m rows once per m rounds (``fast_forward``).
 * full mesh — recursive doubling: log2(P) rounds of global-roll-by-2^k,
   each roll at most two block ``ppermute``s (whole-block hop + remainder
   splice). Bit-identical to ``gossip_round_mesh`` including change counts.
 * star — lattice all-reduce for the hub (local row-reduce → ``all_gather``
   of one row per device → device reduce) + one-row hub broadcast for the
-  spokes. O(N·D) ICI traffic instead of gathering P rows.
+  spokes. O(N·D) collective traffic instead of gathering P rows.
 * generic (bridge, partitions, random graphs) — masked ``all_gather``: the
   full table is gathered per neighbor column and merged under the adjacency
   mask, reproducing ``gossip_round_generic`` bit-identically (including its
@@ -20,7 +21,7 @@ pattern SURVEY §2 names as the NCCL-equivalent slot:
   per device — intended for the moderate peer counts these irregular
   topologies model (the reference bridge example is 11 peers).
 
-Results are bit-identical to the unsharded kernels (tested on the virtual
+Results are bit-identical to the unsharded rounds (tested on the virtual
 CPU mesh); star's change count is the strict-improvement count against the
 pre-round hub (zero iff the unsharded count is zero).
 """
@@ -350,7 +351,7 @@ def _ring_block_packed(tcls, wrap: bool, *fields):
 @functools.partial(jax.jit, static_argnames=("mesh", "wrap"))
 def ring_round_shardmap_packed(table, mesh, wrap: bool = True):
     """One explicit-SPMD ring/chain round on the packed family — boundary
-    traffic is 12 B/entry/row (packed) or 8 (rank) over ICI, vs 28 for
+    traffic is 12 B/entry/row (packed), 8 (rank) or 4 (rank1), vs 28 for
     dense."""
     nf, tcls = len(table), type(table)
     fn = jax.shard_map(
@@ -370,7 +371,7 @@ def _window_block_packed(tcls, wrap: bool, m: int, *fields):
     latency instead of m), extends its local block to [m + local_p + m]
     rows, and computes the radius-m window join in O(log m) 3-way joins
     (the merge is an idempotent lattice join, so m Jacobi rounds ≡ one
-    radius-m window — ops/packed._window_stripe_fullp's proof). Ext-edge
+    radius-m window — ops/packed.ring_window_packed_xla's proof). Ext-edge
     shifts zero-fill: rows within r of the ext edge are invalid at radius
     r, and the trapezoid argument (valid(q, r+s) needs valid(q±s, r))
     keeps every CENTER row exact because the halo is exactly m deep; on
@@ -440,7 +441,7 @@ def _window_block_packed(tcls, wrap: bool, m: int, *fields):
 @functools.partial(jax.jit, static_argnames=("mesh", "wrap", "m"))
 def ring_window_shardmap_packed(table, mesh, wrap: bool, m: int):
     """m explicit-SPMD ring/chain rounds per ONE boundary collective
-    round-trip: the multi-chip twin of ops/packed.ring_window_packed_traced
+    round-trip: the multi-device twin of ops/packed.ring_window_packed_xla
     — bit-identical state to m classic rounds, exact classic round-m
     residual (psum over devices). m must not exceed the per-device row
     count; the sim's fast_forward caps its passes accordingly."""
@@ -482,6 +483,14 @@ def mesh_round_shardmap_packed(table, mesh):
     )
     *fields, changed = fn(*table)
     return tcls(*fields), changed
+
+
+@functools.partial(jax.jit, static_argnames=("mesh",), donate_argnums=(0,))
+def reconcile_shardmap_packed(table, mesh):
+    """Direct reconcile of a strongly connected topology on the mesh: the
+    ceil(log2 P) doubling join is exactly one full-mesh round, run here on
+    a donated table (ops/packed.reconcile_packed_xla's sharded twin)."""
+    return mesh_round_shardmap_packed(table, mesh)[0]
 
 
 def _star_block_packed(tcls, hub_dev: int, hub_row: int, *fields):
@@ -553,462 +562,6 @@ def shardmap_round_packed(table, topology, mesh):
     return generic_round_shardmap_packed(
         table, jnp.asarray(topology.neighbors), mesh
     )
-
-
-def _frontier_ring_block_packed(tcls, wrap: bool, interpret: bool, ids,
-                                *fields, tile_n: int = 0):
-    """Per-device frontier ring/chain body: ppermute the boundary rows,
-    then a local Pallas frontier round over only the stripes in the
-    prefetched ``ids`` array; counts psum across devices so every shard
-    agrees on the next frontier. ``tile_n`` overrides the stripe tile
-    (the window-fused loop drives the tail at ITS tile so one ids array
-    serves both phases)."""
-    from ..ops.packed import frontier_shard_round_packed
-
-    block = tcls(*fields)
-    axis_size = jax.lax.axis_size(PEER_AXIS)
-    idx = jax.lax.axis_index(PEER_AXIS)
-    fwd = [(i, (i + 1) % axis_size) for i in range(axis_size)]
-    bwd = [(i, (i - 1) % axis_size) for i in range(axis_size)]
-    from_prev = [
-        jax.lax.ppermute(f[-1:, :], PEER_AXIS, fwd) for f in block
-    ]
-    from_next = [
-        jax.lax.ppermute(f[:1, :], PEER_AXIS, bwd) for f in block
-    ]
-    if not wrap:
-        is_first = idx == 0
-        is_last = idx == axis_size - 1
-        from_prev = [
-            jnp.where(is_first, jnp.zeros_like(f), f) for f in from_prev
-        ]
-        from_next = [
-            jnp.where(is_last, jnp.zeros_like(f), f) for f in from_next
-        ]
-    n = block[0].shape[1]
-    pad7 = jnp.zeros((7, n), jnp.int32)
-    tops = tuple(jnp.concatenate([pad7, fp], axis=0) for fp in from_prev)
-    bottoms = tuple(jnp.concatenate([fn, pad7], axis=0) for fn in from_next)
-    new_block, counts = frontier_shard_round_packed(
-        block, tops, bottoms, ids, interpret, vma={PEER_AXIS},
-        tile_n=tile_n,
-    )
-    return (*new_block, jax.lax.psum(counts, PEER_AXIS))
-
-
-def _frontier_ring_block_window_packed(tcls, wrap: bool, m: int,
-                                       tile_n: int, interpret: bool, ids,
-                                       *fields):
-    """Per-device WINDOW frontier body: ppermute the FULL m-row boundary
-    slabs ONCE, then run m gossip rounds locally as one distance-tracking
-    radius-m window join (O(log m) doubling steps) over the active
-    stripes — ONE collective round-trip per m rounds instead of per 8
-    (_frontier_ring_block_multiround_packed), attacking the term that
-    dominates real multi-chip wall clock: ICI/collective latency. The
-    per-entry last-change distances make the classic round counts exact
-    (s ≤ r+1 composition — ops/packed.py _window_dist_chain). Changed
-    counts psum across devices; last-change rounds pmax."""
-    from ..ops.packed import frontier_shard_window_packed
-
-    block = tcls(*fields)
-    axis_size = jax.lax.axis_size(PEER_AXIS)
-    idx = jax.lax.axis_index(PEER_AXIS)
-    fwd = [(i, (i + 1) % axis_size) for i in range(axis_size)]
-    bwd = [(i, (i - 1) % axis_size) for i in range(axis_size)]
-    from_prev = [
-        jax.lax.ppermute(f[-m:, :], PEER_AXIS, fwd) for f in block
-    ]
-    from_next = [
-        jax.lax.ppermute(f[:m, :], PEER_AXIS, bwd) for f in block
-    ]
-    if not wrap:
-        # zeroed slabs are exact absent-neighbor semantics: cls 0 is the
-        # join identity through every window step
-        is_first = idx == 0
-        is_last = idx == axis_size - 1
-        from_prev = [
-            jnp.where(is_first, jnp.zeros_like(f), f) for f in from_prev
-        ]
-        from_next = [
-            jnp.where(is_last, jnp.zeros_like(f), f) for f in from_next
-        ]
-    new_block, stats = frontier_shard_window_packed(
-        block, tuple(from_prev), tuple(from_next), ids, m, tile_n,
-        interpret, vma={PEER_AXIS},
-    )
-    agreed = jnp.concatenate([
-        jax.lax.psum(stats[0:1], PEER_AXIS),
-        jax.lax.pmax(stats[1:2], PEER_AXIS),
-    ])
-    return (*new_block, agreed)
-
-
-def _frontier_ring_block_dense(wrap: bool, mode: str, interpret: bool, ids,
-                               *fields):
-    """Per-device DENSE frontier ring/chain body (nf=4 lean or nf=7 full
-    metadata): ppermute one boundary row per direction (padded into 8-row
-    snapshots), run the local dense frontier kernel over the stripes in
-    ``ids``, psum per-stripe counts."""
-    from ..ops.ring_kernel import frontier_shard_round_dense
-
-    nf = len(fields)
-    axis_size = jax.lax.axis_size(PEER_AXIS)
-    idx = jax.lax.axis_index(PEER_AXIS)
-    fwd = [(i, (i + 1) % axis_size) for i in range(axis_size)]
-    bwd = [(i, (i - 1) % axis_size) for i in range(axis_size)]
-    from_prev = [
-        jax.lax.ppermute(f[-1:, :], PEER_AXIS, fwd) for f in fields
-    ]
-    from_next = [
-        jax.lax.ppermute(f[:1, :], PEER_AXIS, bwd) for f in fields
-    ]
-    if not wrap:
-        is_first = idx == 0
-        is_last = idx == axis_size - 1
-        from_prev = [
-            jnp.where(is_first, jnp.zeros_like(f), f) for f in from_prev
-        ]
-        from_next = [
-            jnp.where(is_last, jnp.zeros_like(f), f) for f in from_next
-        ]
-    n = fields[0].shape[1]
-    pad7 = jnp.zeros((7, n), jnp.int32)
-    tops = tuple(jnp.concatenate([pad7, fp], axis=0) for fp in from_prev)
-    bottoms = tuple(jnp.concatenate([fn, pad7], axis=0) for fn in from_next)
-    new_fields, counts = frontier_shard_round_dense(
-        fields, tops, bottoms, ids, mode, interpret, vma={PEER_AXIS}
-    )
-    return (*new_fields, jax.lax.psum(counts, PEER_AXIS))
-
-
-def _frontier_ring_block_multiround_dense(wrap: bool, mode: str,
-                                          interpret: bool, ids, *fields):
-    """FUSED per-device DENSE frontier body: ppermute the FULL 8-row
-    boundary blocks once, then run HALO_FUSE rounds entirely in VMEM
-    (trapezoidal time-tiling — the dense twin of
-    _frontier_ring_block_multiround_packed). One collective round-trip
-    per 8 gossip rounds; per-round per-stripe counts psum across
-    devices."""
-    from ..ops.ring_kernel import frontier_shard_multiround_dense
-
-    axis_size = jax.lax.axis_size(PEER_AXIS)
-    idx = jax.lax.axis_index(PEER_AXIS)
-    fwd = [(i, (i + 1) % axis_size) for i in range(axis_size)]
-    bwd = [(i, (i - 1) % axis_size) for i in range(axis_size)]
-    from_prev = [
-        jax.lax.ppermute(f[-8:, :], PEER_AXIS, fwd) for f in fields
-    ]
-    from_next = [
-        jax.lax.ppermute(f[:8, :], PEER_AXIS, bwd) for f in fields
-    ]
-    if not wrap:
-        # zeroed snapshots are exact absent-neighbor semantics: an
-        # all-zero row is the bottom of both priority orders through
-        # every fused round
-        is_first = idx == 0
-        is_last = idx == axis_size - 1
-        from_prev = [
-            jnp.where(is_first, jnp.zeros_like(f), f) for f in from_prev
-        ]
-        from_next = [
-            jnp.where(is_last, jnp.zeros_like(f), f) for f in from_next
-        ]
-    new_fields, counts = frontier_shard_multiround_dense(
-        fields, tuple(from_prev), tuple(from_next), ids, mode, interpret,
-        vma={PEER_AXIS},
-    )
-    return (*new_fields, jax.lax.psum(counts, PEER_AXIS))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "wrap", "mode", "lean", "max_rounds",
-                     "interpret", "fuse"),
-    donate_argnums=(0,),
-)
-def gossip_frontier_shardmap_dense(
-    table: TableState, dirty: jax.Array, mesh, wrap: bool, mode: str,
-    lean: bool, max_rounds: int, interpret: bool = False, fuse: int = 1,
-):
-    """Dense-layout frontier convergence over the device mesh (ring/chain)
-    — the dense twin of gossip_frontier_shardmap_packed's single-round
-    loop: compacted prefetch ids carried across rounds, per-stripe counts
-    psum'd, one-grid-step compaction kernel, no per-round XLA
-    nonzero/cumsum/concat chain. Lean sims exchange only the four
-    value-key arrays; writer/ctr/tick stay device-local and untouched
-    (the lean gossip contract).
-
-    ``fuse`` > 1 (must be HALO_FUSE) runs 8 gossip rounds per collective
-    round-trip, exactly like the packed spmd loop: the body ppermutes the
-    FULL 8-row boundary blocks and the per-device kernel time-tiles 8
-    rounds in VMEM; exact classic round counts and last-round residuals
-    via the shared frontier_fused_loop driver."""
-    from ..ops.packed import (
-        HALO_FUSE,
-        compact_counts_multiround_packed,
-        compact_counts_packed,
-        frontier_fused_loop,
-        frontier_ids_compact,
-    )
-    from ..ops.ring_kernel import frontier_tile_n_dense_sharded
-
-    fields = (
-        (table.cls, table.khi, table.klo, table.vid)
-        if lean else tuple(table)
-    )
-    nf = len(fields)
-    fn = jax.shard_map(
-        functools.partial(_frontier_ring_block_dense, wrap, mode, interpret),
-        mesh=mesh,
-        in_specs=(P(), *[P(PEER_AXIS, None)] * nf),
-        out_specs=(*[P(PEER_AXIS, None)] * nf, P()),
-    )
-    p, n = table.cls.shape
-    t_total = n // frontier_tile_n_dense_sharded(
-        p, n, mesh.devices.size, lean
-    )
-
-    def round1(flds, ids):
-        *new_fields, counts = fn(ids, *flds)
-        return (
-            tuple(new_fields),
-            compact_counts_packed(counts, interpret=interpret),
-        )
-
-    def finish(fields, rounds, last_changed):
-        if lean:
-            tbl = table._replace(
-                cls=fields[0], khi=fields[1], klo=fields[2], vid=fields[3]
-            )
-        else:
-            tbl = TableState(*fields)
-        return tbl, rounds, last_changed
-
-    if fuse > 1:
-        assert fuse == HALO_FUSE, (
-            "the 8-row boundary exchange pins the spmd fuse depth"
-        )
-        fn_m = jax.shard_map(
-            functools.partial(
-                _frontier_ring_block_multiround_dense, wrap, mode, interpret
-            ),
-            mesh=mesh,
-            in_specs=(P(), *[P(PEER_AXIS, None)] * nf),
-            out_specs=(*[P(PEER_AXIS, None)] * nf, P()),
-        )
-
-        def roundm(flds, ids):
-            *new_fields, counts = fn_m(ids, *flds)
-            return (
-                tuple(new_fields),
-                compact_counts_multiround_packed(counts, interpret=interpret),
-            )
-
-        return finish(*frontier_fused_loop(
-            fields, dirty, t_total, max_rounds, HALO_FUSE, round1, roundm
-        ))
-
-    def cond(state):
-        _, ids, rounds, _ = state
-        return (ids[t_total] > 0) & (rounds < max_rounds)
-
-    def body(state):
-        flds, ids, rounds, _ = state
-        flds, ids_next = round1(flds, ids)
-        return flds, ids_next, rounds + 1, ids_next[t_total + 1]
-
-    ids0 = frontier_ids_compact(dirty, t_total)
-    fields, ids_f, rounds, last_changed = jax.lax.while_loop(
-        cond, body, (fields, ids0, jnp.int32(0), jnp.int32(1))
-    )
-    last_changed = jnp.where(ids_f[t_total] > 0, last_changed, 0)
-    return finish(fields, rounds, last_changed)
-
-
-def _frontier_ring_block_multiround_packed(tcls, wrap: bool,
-                                           interpret: bool, ids, *fields):
-    """FUSED per-device frontier body: ppermute the FULL 8-row boundary
-    blocks once, then run HALO_FUSE rounds entirely in VMEM (trapezoidal
-    time-tiling — the 8-row snapshots buy exactly 8 exact rounds for the
-    center). One collective round-trip per 8 gossip rounds instead of per
-    round: same total boundary bytes, 8x fewer collective latencies and
-    block DMAs. Per-round per-stripe counts psum across devices."""
-    from ..ops.packed import frontier_shard_multiround_packed
-
-    block = tcls(*fields)
-    axis_size = jax.lax.axis_size(PEER_AXIS)
-    idx = jax.lax.axis_index(PEER_AXIS)
-    fwd = [(i, (i + 1) % axis_size) for i in range(axis_size)]
-    bwd = [(i, (i - 1) % axis_size) for i in range(axis_size)]
-    from_prev = [
-        jax.lax.ppermute(f[-8:, :], PEER_AXIS, fwd) for f in block
-    ]
-    from_next = [
-        jax.lax.ppermute(f[:8, :], PEER_AXIS, bwd) for f in block
-    ]
-    if not wrap:
-        # zeroed snapshots are exact absent-neighbor semantics: cls=0 is
-        # the join identity through every fused round
-        is_first = idx == 0
-        is_last = idx == axis_size - 1
-        from_prev = [
-            jnp.where(is_first, jnp.zeros_like(f), f) for f in from_prev
-        ]
-        from_next = [
-            jnp.where(is_last, jnp.zeros_like(f), f) for f in from_next
-        ]
-    new_block, counts = frontier_shard_multiround_packed(
-        block, tuple(from_prev), tuple(from_next), ids, interpret,
-        vma={PEER_AXIS},
-    )
-    return (*new_block, jax.lax.psum(counts, PEER_AXIS))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "wrap", "max_rounds", "interpret", "fuse", "window_fuse",
-        "window_tile",
-    ),
-    donate_argnums=(0,),
-)
-def gossip_frontier_shardmap_packed(
-    table, dirty: jax.Array, mesh, wrap: bool, max_rounds: int,
-    interpret: bool = False, fuse: int = 1, window_fuse: int = 0,
-    window_tile: int = 0,
-):
-    """Frontier convergence over the device mesh (packed ring/chain): each
-    round ppermutes one boundary row per direction and runs the local
-    frontier kernel over only the stripes still changing anywhere. The
-    loop carries the COMPACTED prefetch ids array, not per-stripe flags:
-    the round kernel emits per-stripe change counts, a psum agrees them
-    across devices, and one grid-step compaction kernel
-    (compact_counts_packed) rebuilds the next round's ids — the body is
-    two pallas_calls plus collectives, with no per-round XLA
-    nonzero/cumsum/concat chain (the multi-chip twin of the single-chip
-    in-kernel compaction, ops/packed.py _frontier_round_kernel_packed).
-    Settled stripes cost no DMA or compute on ANY device. Bit-identical
-    final state and round count to the unsharded loops (same
-    one-round-per-iteration lattice advance).
-
-    ``fuse`` > 1 (must be HALO_FUSE) runs 8 gossip rounds per collective
-    round-trip: the body ppermutes the FULL 8-row boundary blocks and the
-    per-device kernel time-tiles 8 rounds in VMEM
-    (_frontier_shard_multiround_kernel_packed). Exact classic round counts
-    and last-round residuals are reconstructed via the shared
-    frontier_fused_loop driver (fused phase stops strictly before
-    max_rounds; a single-round tail finishes).
-
-    ``window_fuse`` = m > 0 (with its matching ``window_tile`` from
-    ops.packed.window_frontier_params) runs m rounds per collective
-    round-trip instead: ONE m-row slab ppermute + a local distance-exact
-    radius-m window join (O(log m) joins). Same exact-round-count and
-    cutoff-residual contract through the same fused-loop driver; the
-    single-round tail runs at the window tile so one ids array drives
-    both phases. Mutually exclusive with ``fuse`` > 1."""
-    from ..ops.packed import (
-        HALO_FUSE,
-        _stripe_tile_n,
-        compact_counts_multiround_packed,
-        compact_counts_packed,
-        compact_counts_window_packed,
-        frontier_fused_loop,
-        frontier_ids_compact,
-    )
-
-    nf, tcls = len(table), type(table)
-    n = table[0].shape[1]
-    block_p = table[0].shape[0] // mesh.devices.size
-    if window_fuse > 0:
-        assert fuse == 1, "window_fuse and fuse>1 are mutually exclusive"
-        assert window_tile > 0 and n % window_tile == 0
-    tile_n = window_tile if window_fuse > 0 else _stripe_tile_n(block_p, n)
-    fn = jax.shard_map(
-        functools.partial(
-            _frontier_ring_block_packed, tcls, wrap, interpret,
-            tile_n=window_tile if window_fuse > 0 else 0,
-        ),
-        mesh=mesh,
-        in_specs=(P(), *[P(PEER_AXIS, None)] * nf),
-        out_specs=(*[P(PEER_AXIS, None)] * nf, P()),
-    )
-    t_total = n // tile_n
-
-    def round1(tbl, ids):
-        *fields, counts = fn(ids, *tbl)
-        return (
-            tcls(*fields),
-            compact_counts_packed(counts, interpret=interpret),
-        )
-
-    if window_fuse > 0:
-        fn_w = jax.shard_map(
-            functools.partial(
-                _frontier_ring_block_window_packed, tcls, wrap,
-                window_fuse, window_tile, interpret,
-            ),
-            mesh=mesh,
-            in_specs=(P(), *[P(PEER_AXIS, None)] * nf),
-            out_specs=(*[P(PEER_AXIS, None)] * nf, P()),
-        )
-
-        def roundw(tbl, ids):
-            *fields, stats = fn_w(ids, *tbl)
-            return (
-                tcls(*fields),
-                compact_counts_window_packed(
-                    stats, window_fuse, interpret=interpret
-                ),
-            )
-
-        return frontier_fused_loop(
-            table, dirty, t_total, max_rounds, window_fuse, round1, roundw
-        )
-
-    if fuse > 1:
-        assert fuse == HALO_FUSE, (
-            "the 8-row boundary exchange pins the spmd fuse depth"
-        )
-        fn_m = jax.shard_map(
-            functools.partial(
-                _frontier_ring_block_multiround_packed, tcls, wrap, interpret
-            ),
-            mesh=mesh,
-            in_specs=(P(), *[P(PEER_AXIS, None)] * nf),
-            out_specs=(*[P(PEER_AXIS, None)] * nf, P()),
-        )
-
-        def roundm(tbl, ids):
-            *fields, counts = fn_m(ids, *tbl)
-            return (
-                tcls(*fields),
-                compact_counts_multiround_packed(
-                    counts, interpret=interpret
-                ),
-            )
-
-        return frontier_fused_loop(
-            table, dirty, t_total, max_rounds, HALO_FUSE, round1, roundm
-        )
-
-    def cond(state):
-        _, ids, rounds, _ = state
-        return (ids[t_total] > 0) & (rounds < max_rounds)
-
-    def body(state):
-        tbl, ids, rounds, _ = state
-        tbl, ids_next = round1(tbl, ids)
-        return tbl, ids_next, rounds + 1, ids_next[t_total + 1]
-
-    ids0 = frontier_ids_compact(dirty, t_total)
-    table, ids_f, rounds, last_changed = jax.lax.while_loop(
-        cond, body, (table, ids0, jnp.int32(0), jnp.int32(1))
-    )
-    # honest residual, matching the unsharded loops: 0 IFF the frontier is
-    # empty at exit (covers the nothing-dirty-at-entry case, where the
-    # init sentinel 1 would otherwise leak out as last_residual)
-    last_changed = jnp.where(ids_f[t_total] > 0, last_changed, 0)
-    return table, rounds, last_changed
 
 
 def shardmap_round(

@@ -3,7 +3,8 @@
 The reference's observability is console logging plus middleware events and
 ``getSyncStats()`` (SURVEY §5). The engine's equivalents: per-step counters
 (``sim.stats``), a step-event bus, residual history for convergence
-monitoring, and a ``jax.profiler`` trace context for TPU timeline capture.
+monitoring, and a ``jax.profiler`` trace context for device timeline
+capture.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Path handling and interning.
 
 The reference addresses nodes by slash-separated paths
-(``/root/reference/src/bullet.js:115-129``). The TPU engine needs dense
+(``/root/reference/src/bullet.js:115-129``). The engine needs dense
 integer ids for leaf paths so the graph lives in fixed-shape device tables;
 this module provides normalization plus a host-side interner that also tracks
 the parent/child tree so subtree reads and per-parent query scans stay cheap.

@@ -1,9 +1,10 @@
-"""14-peer ring network to convergence — on the TPU engine.
+"""14-peer ring network to convergence — on the engine.
 
 Mirrors /root/reference/examples/bullet-circle-network-example.js (14 nodes,
 2 neighbors each, periodic updates, convergence monitoring) with the
 one-OS-process-per-peer deployment replaced by the simulation engine: every
-peer is a row of the device table and a gossip round is one fused kernel.
+peer is a row of the device table and a gossip round is one compiled
+program.
 """
 
 import _env  # noqa: F401 - backend selection

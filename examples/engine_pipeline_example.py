@@ -1,6 +1,6 @@
 """Engine batch-ingress pipeline: schemas compiled into device masks +
 middleware hooks at the batch boundary + traced transforms + changed-slot
-subscriptions, all on the TPU engine (models/ingress.py).
+subscriptions, all on the engine (models/ingress.py).
 
 The db-layer equivalents live in validation_example.py and
 middleware_example.py; this demo shows the same capabilities at engine

@@ -1,11 +1,8 @@
-"""Incremental convergence: the frontier loop touches only what changed.
+"""Incremental convergence: small update batches on a converged graph.
 
-The packed engine tracks which slot stripes reached their fixed point;
-after a converged state, new writes mark only the stripes they touch, and
-the next `run_until_converged` processes just that wavefront (see
-docs/tpu-performance.md "Frontier convergence"). This demo builds a
-converged 64-peer graph, then pushes small update batches and shows each
-incremental convergence — with results identical to a from-scratch run.
+This demo builds a converged 64-peer graph, then pushes small update
+batches and shows each incremental convergence — with results identical to
+a from-scratch run, and to a direct ``reconcile()``.
 """
 
 import _env  # noqa: F401  (backend selection)
@@ -20,7 +17,7 @@ from bullet_tpu.models.netsim import PeerNetworkSim
 def main() -> None:
     peers, capacity = 64, 1 << 13
     sim = PeerNetworkSim(peers, capacity=capacity, topology="ring",
-                         layout="packed", use_pallas=True)
+                         layout="packed")
 
     # bulk-load a base graph and converge it fully once
     rng = np.random.default_rng(0)
@@ -36,7 +33,7 @@ def main() -> None:
           f"({time.time()-t0:.2f}s)")
     assert sim.tables_equal()
 
-    # incremental batches: only the touched stripes do work
+    # incremental batches
     all_ops = []
     for batch in range(3):
         ops = [(int(rng.integers(peers)), f"sensors/s{int(rng.integers(50))}/reading",
@@ -52,7 +49,7 @@ def main() -> None:
 
     # equivalence: a from-scratch sim fed everything lands on the same state
     fresh = PeerNetworkSim(peers, capacity=capacity, topology="ring",
-                           layout="packed", use_pallas=True)
+                           layout="packed")
     rng2 = np.random.default_rng(0)
     fresh.put_bulk(
         rng2.integers(0, peers, k).astype(np.int32),
@@ -68,9 +65,10 @@ def main() -> None:
 
     # direct reconciliation: when only the reconciled state matters (not
     # the round-by-round protocol), reconcile() jumps straight to the
-    # fixed point in one table pass — same state, no simulated rounds
+    # fixed point in ceil(log2 P) doubling merges — same state, no
+    # simulated rounds
     direct = PeerNetworkSim(peers, capacity=capacity, topology="ring",
-                            layout="packed", use_pallas=True)
+                            layout="packed")
     rng3 = np.random.default_rng(0)
     direct.put_bulk(
         rng3.integers(0, peers, k).astype(np.int32),

@@ -1,8 +1,9 @@
 """Scale showcase: 1,024 simulated peers converging a large graph under
 concurrent conflicting writes — the BASELINE.json north-star shape.
 
-On CPU this runs a scaled-down config; on a TPU it runs the full 1,024-peer
-mesh. The peer axis shards over however many devices are available.
+On CPU this runs a scaled-down config; on a GPU (BULLET_BACKEND=gpu) it
+runs the full 1,024-peer network. The peer axis shards over however many
+devices are available.
 """
 
 import time
@@ -16,10 +17,10 @@ from bullet_tpu.models.netsim import PeerNetworkSim
 
 
 def main() -> None:
-    on_tpu = jax.default_backend() == "tpu"
-    num_peers = 1024 if on_tpu else 64
-    keys = 4096 if on_tpu else 256
-    writes = 16384 if on_tpu else 1024
+    full = jax.default_backend() == "gpu"
+    num_peers = 1024 if full else 64
+    keys = 4096 if full else 256
+    writes = 16384 if full else 1024
     n_devices = len(jax.devices())
     mesh_devices = n_devices if n_devices > 1 else None
 

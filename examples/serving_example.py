@@ -1,4 +1,4 @@
-"""TPU-backed serving: a wire-connected peer as a live engine replica.
+"""Engine-backed serving: a wire-connected peer as a live engine replica.
 
 A writer peer and a serving peer talk the REAL wire protocol (the same
 one bullet-js speaks — TCP/NDJSON here; ws:// works identically). The

@@ -2,14 +2,13 @@
 tests/test_multihost_smoke.py, one OS process per simulated host).
 
 Each process brings 2 virtual CPU devices; jax.distributed stitches them
-into one 4-device global mesh. The worker covers SIX multi-chip paths
+into one 4-device global mesh. The worker covers the multi-device paths
 across the real process boundary, each bit-checked against the unsharded
-twin computed locally: a dense shard_map ring round, the packed frontier
-shard_map convergence loop (final state AND round count), the packed
-doubling-join reconcile, the FUSED dense frontier shard_map loop
-(HALO_FUSE rounds per collective; state AND round count), and the RANK
-layout's frontier loop + reconcile (8 B/entry tables through the same
-generic collectives).
+twin computed locally: a dense shard_map ring round, the packed shard_map
+convergence loop (final state AND round count), the packed doubling-join
+reconcile (XLA-inferred and shard_map), the dense shard_map convergence
+loop, the RANK and RANK1 layouts' loop + reconcile (through the same
+generic collectives), and the shard_map window fast_forward.
 """
 
 import os
@@ -96,20 +95,17 @@ def main() -> None:
 
     check_shards(merged, expected, TableState._fields)
 
-    # ---- packed frontier convergence loop across the process boundary ----
+    # ---- packed shard_map convergence loop across the process boundary ----
     from bullet_tpu.ops.packed import (
         PackedTable,
-        _stripe_tile_n,
-        frontier_tile_n,
-        gossip_frontier_packed,
+        gossip_until_converged_packed,
         pack_cv,
         reconcile_packed_xla,
     )
-    from bullet_tpu.parallel.shardmap_gossip import (
-        gossip_frontier_shardmap_packed,
-    )
+    from bullet_tpu.parallel import topology as topo
+    from bullet_tpu.parallel.shardmap_gossip import reconcile_shardmap_packed
 
-    pp, nn = 32, 256  # per-device block 8 rows: the sharded stripe tiles
+    pp, nn = 32, 256  # per-device block 8 rows
     cls = rng.integers(0, 4, (pp, nn), dtype=np.int32)
     present = cls > 0
     khi = np.where(present, rng.integers(-50, 50, (pp, nn)), 0).astype(np.int32)
@@ -124,81 +120,48 @@ def main() -> None:
     )
     cv_np = np.asarray(local_packed.cv)
     host_packed.append(cv_np)
-    global_packed = PackedTable(
-        *(
-            jax.make_array_from_callback(
-                (pp, nn), psharding, lambda idx, f=f: f[idx]
-            )
-            for f in host_packed
-        )
-    )
 
-    t_sh = nn // _stripe_tile_n(pp // 4, nn)
-    got_tbl, got_rounds, got_changed = gossip_frontier_shardmap_packed(
-        global_packed, jnp.ones(t_sh, jnp.bool_), mesh, True, 64,
-        interpret=True,
+    def sharded(tcls, fields):
+        return tcls(
+            *(
+                jax.make_array_from_callback(
+                    (pp, nn), psharding, lambda idx, f=f: f[idx]
+                )
+                for f in fields
+            )
+        )
+
+    ring_nb = jnp.asarray(topo.ring(pp).neighbors)
+
+    def converge(tbl, spmd_mesh=None):
+        return gossip_until_converged_packed(
+            tbl, ring_nb, "ring", 64, spmd_mesh=spmd_mesh
+        )
+
+    got_tbl, got_rounds, got_changed = converge(
+        sharded(PackedTable, host_packed), mesh
     )
-    t_loc = nn // frontier_tile_n(pp, nn)
-    exp_tbl, exp_rounds, exp_changed = gossip_frontier_packed(
-        local_packed, jnp.ones(t_loc, jnp.bool_), True, 64,
-        interpret=True, fuse=1,
-    )
+    exp_tbl, exp_rounds, exp_changed = converge(local_packed)
     assert int(got_rounds) == int(exp_rounds), (
         int(got_rounds), int(exp_rounds))
     assert int(got_changed) == int(exp_changed) == 0
     check_shards(got_tbl, exp_tbl, PackedTable._fields)
 
     # ---- packed reconcile (doubling join) across the process boundary ----
-    rebuilt_global = PackedTable(
-        *(
-            jax.make_array_from_callback(
-                (pp, nn), psharding, lambda idx, f=f: f[idx]
-            )
-            for f in host_packed
-        )
-    )
-    got_rec = reconcile_packed_xla(rebuilt_global)
+    got_rec = reconcile_packed_xla(sharded(PackedTable, host_packed))
     exp_rec = reconcile_packed_xla(
         PackedTable(
             jnp.asarray(khi), jnp.asarray(klo), jnp.asarray(cv_np)
         )
     )
     check_shards(got_rec, exp_rec, PackedTable._fields)
-    # reconcile and the converged frontier loop agree (all-reachable ring)
+    # reconcile and the converged loop agree (all-reachable ring)
     check_shards(got_tbl, exp_rec, PackedTable._fields)
+    got_srec = reconcile_shardmap_packed(sharded(PackedTable, host_packed), mesh)
+    check_shards(got_srec, exp_rec, PackedTable._fields)
 
-    # ---- WINDOW spmd frontier across the process boundary: m rounds per
-    # collective via one m-row slab ppermute + a local distance-exact
-    # radius-m window join — state AND round count must match the
-    # single-round sharded loop above ----
-    win_tile = 128
-    t_w = nn // win_tile
-    win_global = PackedTable(
-        *(
-            jax.make_array_from_callback(
-                (pp, nn), psharding, lambda idx, f=f: f[idx]
-            )
-            for f in host_packed
-        )
-    )
-    got_wtbl, got_wrounds, got_wchanged = gossip_frontier_shardmap_packed(
-        win_global, jnp.ones(t_w, jnp.bool_), mesh, True, 64,
-        interpret=True, window_fuse=5, window_tile=win_tile,
-    )
-    assert int(got_wrounds) == int(exp_rounds), (
-        int(got_wrounds), int(exp_rounds))
-    assert int(got_wchanged) == 0
-    check_shards(got_wtbl, exp_tbl, PackedTable._fields)
-
-    # ---- FUSED dense spmd frontier loop across the process boundary ----
-    # (full-metadata reference mode, HALO_FUSE=8 rounds per collective)
-    from bullet_tpu.ops.packed import HALO_FUSE
-    from bullet_tpu.ops.ring_kernel import frontier_tile_n_dense_sharded
-    from bullet_tpu.parallel import topology as topo
+    # ---- dense shard_map convergence loop across the process boundary ----
     from bullet_tpu.parallel.gossip import gossip_until_converged_device
-    from bullet_tpu.parallel.shardmap_gossip import (
-        gossip_frontier_shardmap_dense,
-    )
 
     pd, nd = 32, 256
     cls = rng.integers(0, 4, (pd, nd), dtype=np.int32)
@@ -209,24 +172,13 @@ def main() -> None:
                 np.int32
             )
         )
-    dsharding = NamedSharding(mesh, PartitionSpec(PEER_AXIS, None))
-    global_dense = TableState(
-        *(
-            jax.make_array_from_callback(
-                (pd, nd), dsharding, lambda idx, f=f: f[idx]
-            )
-            for f in dense_fields
-        )
-    )
-    t_d = nd // frontier_tile_n_dense_sharded(pd, nd, 4, False)
-    got_dtbl, got_drounds, got_dchanged = gossip_frontier_shardmap_dense(
-        global_dense, jnp.ones(t_d, jnp.bool_), mesh, True, "reference",
-        False, 64, interpret=True, fuse=HALO_FUSE,
+    got_dtbl, got_drounds, got_dchanged = gossip_until_converged_device(
+        sharded(TableState, dense_fields), ring_nb, "ring", "reference", 64,
+        spmd_mesh=mesh,
     )
     exp_dtbl, exp_drounds, exp_dchanged = gossip_until_converged_device(
-        TableState(*(jnp.asarray(f) for f in dense_fields)),
-        jnp.asarray(topo.ring(pd).neighbors), "ring", "reference", 64,
-        use_pallas=False, lean=False,
+        TableState(*(jnp.asarray(f) for f in dense_fields)), ring_nb,
+        "ring", "reference", 64,
     )
     assert int(got_drounds) == int(exp_drounds), (
         int(got_drounds), int(exp_drounds))
@@ -234,7 +186,7 @@ def main() -> None:
     check_shards(got_dtbl, exp_dtbl, TableState._fields)
 
     # ---- RANK layout (8 B/entry, single-compare merges) across the
-    # process boundary: frontier shard_map loop + doubling-join reconcile,
+    # process boundary: shard_map loop + doubling-join reconcile,
     # each bit-checked shard-by-shard against the locally computed
     # unsharded rank twin (state AND round count). The vid space gets a
     # DETERMINISTIC synthetic rank order shared by both processes (rank
@@ -258,79 +210,47 @@ def main() -> None:
         rmap,
     )
     host_rank = [np.asarray(local_rank.rank), cv_np]
-    global_rank = RankTable(
-        *(
-            jax.make_array_from_callback(
-                (pp, nn), psharding, lambda idx, f=f: f[idx]
-            )
-            for f in host_rank
-        )
+    got_rtbl, got_rrounds, got_rchanged = converge(
+        sharded(RankTable, host_rank), mesh
     )
-    got_rtbl, got_rrounds, got_rchanged = gossip_frontier_shardmap_packed(
-        global_rank, jnp.ones(t_sh, jnp.bool_), mesh, True, 64,
-        interpret=True,
-    )
-    exp_rtbl, exp_rrounds, exp_rchanged = gossip_frontier_packed(
-        RankTable(*(jnp.asarray(f) for f in host_rank)),
-        jnp.ones(t_loc, jnp.bool_), True, 64, interpret=True, fuse=1,
+    exp_rtbl, exp_rrounds, exp_rchanged = converge(
+        RankTable(*(jnp.asarray(f) for f in host_rank))
     )
     assert int(got_rrounds) == int(exp_rrounds), (
         int(got_rrounds), int(exp_rrounds))
     assert int(got_rchanged) == int(exp_rchanged) == 0
     check_shards(got_rtbl, exp_rtbl, RankTable._fields)
 
-    got_rrec = reconcile_packed_xla(
-        RankTable(
-            *(
-                jax.make_array_from_callback(
-                    (pp, nn), psharding, lambda idx, f=f: f[idx]
-                )
-                for f in host_rank
-            )
-        )
-    )
+    got_rrec = reconcile_packed_xla(sharded(RankTable, host_rank))
     exp_rrec = reconcile_packed_xla(
         RankTable(*(jnp.asarray(f) for f in host_rank))
     )
     check_shards(got_rrec, exp_rrec, RankTable._fields)
 
     # ---- RANK1 layout (4 B/entry, the rank alone) across the process
-    # boundary: the 1-field table through the same frontier shard_map loop
+    # boundary: the 1-field table through the same shard_map loop
     # and reconcile, bit-checked against the unsharded rank1 twin.
     from bullet_tpu.ops.rank import Rank1Table
 
     host_rank1 = [np.asarray(local_rank.rank)]
-    global_rank1 = Rank1Table(
-        jax.make_array_from_callback(
-            (pp, nn), psharding, lambda idx: host_rank1[0][idx]
-        )
+    got_1tbl, got_1rounds, got_1changed = converge(
+        sharded(Rank1Table, host_rank1), mesh
     )
-    got_1tbl, got_1rounds, got_1changed = gossip_frontier_shardmap_packed(
-        global_rank1, jnp.ones(t_sh, jnp.bool_), mesh, True, 64,
-        interpret=True,
-    )
-    exp_1tbl, exp_1rounds, exp_1changed = gossip_frontier_packed(
-        Rank1Table(jnp.asarray(host_rank1[0])),
-        jnp.ones(t_loc, jnp.bool_), True, 64, interpret=True, fuse=1,
+    exp_1tbl, exp_1rounds, exp_1changed = converge(
+        Rank1Table(jnp.asarray(host_rank1[0]))
     )
     assert int(got_1rounds) == int(exp_1rounds) == int(exp_rrounds), (
         int(got_1rounds), int(exp_1rounds), int(exp_rrounds))
     assert int(got_1changed) == int(exp_1changed) == 0
     check_shards(got_1tbl, exp_1tbl, Rank1Table._fields)
-    # the rank1 frontier landed on the SAME ranks as the 2-field run
+    # the rank1 loop landed on the SAME ranks as the 2-field run
     # (compare the LOCAL unsharded twins — the global arrays' remote
     # shards are not addressable from this process)
     np.testing.assert_array_equal(
         np.asarray(exp_1tbl.rank), np.asarray(exp_rtbl.rank)
     )
 
-    got_1rec = reconcile_packed_xla(
-        Rank1Table(
-            jax.make_array_from_callback(
-                (pp, nn), psharding, lambda idx: host_rank1[0][idx]
-            )
-        )
-    )
+    got_1rec = reconcile_packed_xla(sharded(Rank1Table, host_rank1))
     exp_1rec = reconcile_packed_xla(Rank1Table(jnp.asarray(host_rank1[0])))
     check_shards(got_1rec, exp_1rec, Rank1Table._fields)
 
@@ -345,13 +265,8 @@ def main() -> None:
     )
 
     for m in (3, 8):
-        global_w = Rank1Table(
-            jax.make_array_from_callback(
-                (pp, nn), psharding, lambda idx: host_rank1[0][idx]
-            )
-        )
         got_wtbl, got_wres = ring_window_shardmap_packed(
-            global_w, mesh, True, m
+            sharded(Rank1Table, host_rank1), mesh, True, m
         )
         exp_w = Rank1Table(jnp.asarray(host_rank1[0]))
         exp_wres = None

@@ -1,13 +1,10 @@
 """Cell-coverage for the convergence strategy table (netsim.py).
 
-VERDICT r2 #9: ``run_until_converged`` had grown a 7-way implicit branch
-matrix; it is now the declarative ``CONVERGENCE_STRATEGIES`` table. This
-test enumerates EVERY dispatch cell and pins which loop implementation
-each one selects, so a new kernel (e.g. halo fusion) shows up as exactly
-one edited row here.
+``run_until_converged`` dispatches through the declarative
+``CONVERGENCE_STRATEGIES`` table. This test enumerates EVERY dispatch cell
+and pins which loop implementation each one selects, so a new loop shows
+up as exactly one edited row here.
 """
-
-import itertools
 
 import pytest
 
@@ -27,66 +24,39 @@ def _pick(cell):
 
 def test_every_cell_resolves_to_documented_row():
     """Exhaustive truth table over the cell space. The expectations ARE the
-    dispatch contract — update them deliberately when adding a kernel."""
-    for layout, rc, frontier, spmd, data_mesh, pallas in itertools.product(
-        ("packed", "rank", "rank1", "dense"), *([(False, True)] * 5)
-    ):
-        cell = ConvergenceCell(
-            layout=layout, ring_chain=rc, frontier=frontier, spmd=spmd,
-            data_mesh=data_mesh, pallas=pallas,
-        )
-        name, _ = _pick(cell)
-        if layout in ("packed", "rank", "rank1"):
-            if pallas and rc and frontier and spmd:
-                assert name == "packed-frontier-spmd", cell
-            elif pallas and rc and frontier and not spmd and not data_mesh:
-                assert name == "packed-frontier-local", cell
-            else:
-                assert name == "packed-loop", cell
+    dispatch contract — update them deliberately when adding a loop."""
+    for layout in ("packed", "rank", "rank1", "dense"):
+        name, method = _pick(ConvergenceCell(layout=layout))
+        if layout == "dense":
+            assert (name, method) == ("dense-loop", "_converge_dense_loop")
         else:
-            if pallas and rc and frontier and spmd:
-                assert name == "dense-frontier-spmd", cell
-            elif pallas and rc and frontier and not spmd and not data_mesh:
-                assert name == "dense-frontier", cell
-            else:
-                assert name == "dense-loop", cell
+            assert (name, method) == ("packed-loop", "_converge_packed_loop")
 
 
 def test_first_match_is_unambiguous_for_packed_cells():
-    """packed-* rows must never fall through to the dense rows, whatever
-    the flag combination."""
-    for cell in (
-        ConvergenceCell("packed", True, True, True, True, True),
-        ConvergenceCell("packed", False, False, False, False, False),
-        ConvergenceCell("rank", True, True, True, True, True),
-        ConvergenceCell("rank", False, False, False, False, False),
-        ConvergenceCell("rank1", True, True, True, True, True),
-        ConvergenceCell("rank1", False, False, False, False, False),
-    ):
-        name, _ = _pick(cell)
+    """packed-family cells must never fall through to the dense row."""
+    for layout in ("packed", "rank", "rank1"):
+        name, _ = _pick(ConvergenceCell(layout))
         assert name.startswith("packed-")
 
 
 @pytest.mark.parametrize(
     "layout,topology,want",
     [
-        ("packed", "ring", "packed-frontier-local"),
+        ("packed", "ring", "packed-loop"),
         ("packed", "mesh", "packed-loop"),
-        ("rank", "ring", "packed-frontier-local"),
+        ("rank", "ring", "packed-loop"),
         ("rank", "mesh", "packed-loop"),
-        ("rank1", "ring", "packed-frontier-local"),
+        ("rank1", "ring", "packed-loop"),
         ("rank1", "mesh", "packed-loop"),
-        ("dense", "chain", "dense-frontier"),
+        ("dense", "chain", "dense-loop"),
         ("dense", "star", "dense-loop"),
     ],
 )
 def test_live_sims_pick_expected_rows(layout, topology, want):
     """End-to-end: a real sim's _convergence_strategy returns the expected
-    row (CPU backend, so pallas must be forced on to reach the frontier
-    rows — mirroring the TPU default)."""
-    sim = PeerNetworkSim(
-        8, capacity=256, topology=topology, layout=layout, use_pallas=True
-    )
+    row."""
+    sim = PeerNetworkSim(8, capacity=256, topology=topology, layout=layout)
     name, _runner = sim._convergence_strategy()
     assert name == want
     # and the selected row actually converges the sim (through the public
@@ -98,21 +68,21 @@ def test_live_sims_pick_expected_rows(layout, topology, want):
 
 @pytest.mark.parametrize(
     "layout,want",
-    [("packed", "packed-frontier-spmd"), ("rank1", "packed-frontier-spmd"),
-     ("dense", "dense-frontier-spmd")],
+    [("packed", "packed-loop"), ("rank1", "packed-loop"),
+     ("dense", "dense-loop")],
 )
 def test_live_sim_mesh_spmd_row(layout, want):
     import jax
 
     if len(jax.devices()) < 2:
         pytest.skip("needs the virtual multi-device mesh")
-    # per-device peer block must be >= 8 rows for the sharded frontier tile
     sim = PeerNetworkSim(
         64, capacity=256, topology="ring", layout=layout,
-        mesh_devices=len(jax.devices()), use_shard_map=True, use_pallas=True,
+        mesh_devices=len(jax.devices()), use_shard_map=True,
     )
     name, _ = sim._convergence_strategy()
     assert name == want
+    assert sim._gossip_mesh() is not None  # the loop body is shard_map
     sim.put(0, "a/b", 1)
     sim.run_until_converged()
     assert sim.tables_equal()

@@ -33,7 +33,7 @@ def wait_for(predicate, timeout=20.0):
 
 @pytest.mark.parametrize("layout", ["packed", "rank1"])
 def test_live_bridge_mirrors_wire_traffic(layout):
-    """attach_live_bridge: a wire-connected db peer becomes a TPU-resident
+    """attach_live_bridge: a wire-connected db peer becomes a device-resident
     replica — local puts AND network-applied updates stream into the
     engine as they are accepted, and flush() materializes the mirror."""
     from bullet_tpu.models.bridge import attach_live_bridge

@@ -1,9 +1,9 @@
 """Engine-side validation + middleware at the batch boundary.
 
 Twin of tests/test_validation.py / tests/test_middleware.py core cases for
-the TPU engine (VERDICT r1 items 2-3): scalar puts get host typed checks,
-bulk batches are vetoed by compiled device masks before apply_ops, and the
-hook pipeline wraps the engine write/read paths.
+the engine: scalar puts get host typed checks, bulk batches are vetoed by
+compiled device masks before apply_ops, and the hook pipeline wraps the
+engine write/read paths.
 """
 
 import math

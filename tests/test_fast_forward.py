@@ -1,8 +1,9 @@
 """sim.fast_forward(k): bit-identical to step(k) — same tables, same
 returned last-round residual — computed as O(log k) window joins instead
-of k sequential gossip rounds (ops/packed window kernels + XLA twin).
-Ineligible configurations (dense layouts, meshes, generic topologies)
-must silently delegate to step(k) with identical semantics."""
+of k sequential gossip rounds (ops/packed.ring_window_packed_xla, and its
+shard_map twin on a mesh). Ineligible configurations (dense layouts,
+generic topologies) must silently delegate to step(k) with identical
+semantics."""
 
 import numpy as np
 import pytest
@@ -121,168 +122,40 @@ def test_fast_forward_data_mesh_matches_step():
     assert b.stats["windowed_rounds"] == 5
 
 
-def test_fast_forward_route_matrix(monkeypatch):
-    """Pin the route decision per configuration — especially the TPU
-    memory-envelope rules the CPU test matrix can't exercise: the XLA
-    window (table-copying rolls) must NEVER be chosen on TPU, packed
-    nf=3 takes the in-place frontier loop, data-mesh on TPU delegates to
-    step, and untested window shapes past the strict budget fall back."""
-    import bullet_tpu.models.netsim as ns
-
-    def route(sim, backend):
-        monkeypatch.setattr(
-            ns.jax, "default_backend", lambda: backend
-        )
-        try:
-            return sim._fast_forward_route()
-        finally:
-            monkeypatch.undo()
-
+def test_fast_forward_route_matrix():
+    """Pin the route decision per configuration."""
     r1 = PeerNetworkSim(8, capacity=256, topology="ring", layout="rank1")
-    assert route(r1, "cpu") == "xla"
-    assert route(r1, "tpu") == "pallas"
+    assert r1._fast_forward_route() == "xla"
 
     pk3 = PeerNetworkSim(8, capacity=256, topology="chain", layout="packed")
-    assert route(pk3, "cpu") == "xla"
-    # p=8 < the nf=3 halo depth: no window kernel tiles, frontier it is
-    assert route(pk3, "tpu") == "frontier"
+    assert pk3._fast_forward_route() == "xla"
 
     dense = PeerNetworkSim(8, capacity=256, topology="ring")
-    assert route(dense, "tpu") == "step"
+    assert dense._fast_forward_route() == "step"
 
     mesh_topo = PeerNetworkSim(8, capacity=256, topology="mesh",
                                layout="rank1")
-    assert route(mesh_topo, "tpu") == "step"
+    assert mesh_topo._fast_forward_route() == "step"
 
     dm = PeerNetworkSim(16, capacity=256, topology="ring", layout="rank1",
                         mesh_devices=8)
-    assert route(dm, "cpu") == "xla"
-    assert route(dm, "tpu") == "step"  # data-mesh: no Pallas on shards
+    assert dm._fast_forward_route() == "xla"  # rolls lower to collectives
 
     spmd = PeerNetworkSim(16, capacity=256, topology="ring", layout="rank1",
                           mesh_devices=8, use_shard_map=True)
-    assert route(spmd, "cpu") == "spmd"
-    assert route(spmd, "tpu") == "spmd"
-
-    xla_only = PeerNetworkSim(8, capacity=256, topology="ring",
-                              layout="rank1", use_pallas=False)
-    assert route(xla_only, "tpu") == "step"  # explicit XLA-only switch
-
-    # strict-budget boundary: the window predicate itself
-    from bullet_tpu.ops.packed import (
-        window_halo_supported,
-        window_ring_supported,
-    )
-
-    assert window_ring_supported(4096, 1 << 18, 1)
-    assert not window_ring_supported(8192, 1 << 18, 1)  # past stripe budget
-    assert not window_ring_supported(2048, 1 << 18, 2)
-    # ... and exactly those post-stripe cells ride the windowed HALO
-    # kernel instead of collapsing to the 8-round halo frontier
-    assert window_halo_supported(8192, 1 << 18, 1)
-    assert window_halo_supported(2048, 1 << 18, 2)
-    # packed nf=3 (no stripe window at ANY depth): the halo window IS
-    # its blind-jump route at the north star since round 5's depth-64
-    # timing run — the frontier only wins on a small tracked dirty set
-    # (test_fast_forward_packed_halo_vs_frontier_crossover)
-    assert window_halo_supported(1024, 1 << 20, 3)
+    assert spmd._fast_forward_route() == "spmd"
 
 
-def test_fast_forward_packed_halo_vs_frontier_crossover(monkeypatch):
-    """Packed nf=3 routing split: only BLIND jumps (dirty-stripe
-    tracking invalid — restore, untracked gossip, traced transforms)
-    ride the windowed HALO kernel, which bounds the worst case at
-    ceil(k/64) full-table passes (0.74 T logical merges/s on v5e).
-    Tracked jumps keep the self-compacting frontier at ANY dirty
-    fraction — per-round active-set shrinkage + fixed-point early exit
-    beat fixed full-table passes even from all-dirty (e2e: 0.082 s vs
-    ~0.7 s for the same post-flood 513-round jump; a fraction-based
-    crossover shipped briefly and regressed it). The route is
-    re-resolved after the apply inside fast_forward, so fresh writes
-    refresh the tracked set before the choice is made."""
-    import bullet_tpu.models.netsim as ns
-
-    sim = PeerNetworkSim(128, capacity=16384, topology="ring",
-                         layout="packed")
-    from bullet_tpu.ops.packed import halo_window, window_halo_supported
-
-    p, n = sim.table[0].shape
-    assert halo_window(3) > 0 and window_halo_supported(p, n, 3)
-    tile_n = sim._frontier_tile()
-    assert tile_n > 0
-    t_total = n // tile_n
-    monkeypatch.setattr(ns.jax, "default_backend", lambda: "tpu")
-
-    sim._frontier_dirty = None  # untracked: blind jump
-    assert sim._fast_forward_route() == "halo_window"
-    sim._frontier_dirty = np.ones(t_total, dtype=bool)  # tracked, all dirty
-    assert sim._fast_forward_route() == "frontier"
-    d = np.zeros(t_total, dtype=bool)
-    d[: max(1, t_total // 16)] = True  # tracked, small working set
-    sim._frontier_dirty = d
-    assert sim._fast_forward_route() == "frontier"
-    sim._frontier_dirty = np.zeros(0, dtype=bool)  # stale length: blind
-    assert sim._fast_forward_route() == "halo_window"
-
-
-def test_fast_forward_halo_window_route_matches_step(monkeypatch):
-    """The halo_window route (rank1/rank past the stripe budget on TPU)
-    advances exactly k rounds with step's residual contract — driven in
-    interpret mode with small forced tiles (tile_p=8 → every peer tile
-    is snapshot-adjacent; k=7 needs the full 8-row snapshot depth)."""
-    import bullet_tpu.models.netsim as ns
-
-    for k in (2, 7):
-        a, b = _pair("rank1", "ring", seed=60 + k)
-        monkeypatch.setattr(
-            b, "_fast_forward_route", lambda: "halo_window"
-        )
-        monkeypatch.setattr(
-            ns, "_halo_window_jit",
-            lambda table, wrap, m, interpret: (
-                ns.jax.jit(
-                    _halo_window_interp, static_argnums=(1, 2)
-                )(table, wrap, m)
-            ),
-        )
-        ra = a.step(k)
-        rb = b.fast_forward(k)
-        monkeypatch.undo()
-        assert ra == rb, (k, ra, rb)
-        _tables_equal(a, b)
-        assert b.stats["windowed_rounds"] == k
-
-
-def _halo_window_interp(table, wrap, m):
-    from bullet_tpu.ops.packed import ring_window_halo_packed_traced
-
-    return ring_window_halo_packed_traced(
-        table, wrap, m, True, tiles=(8, 128)
-    )
-
-
-def test_fast_forward_frontier_route_matches_step(monkeypatch):
-    """The frontier route (packed nf=3 on TPU) advances exactly k rounds
-    with step's residual contract — driven here in interpret mode by
-    forcing the route while staying on CPU kernels."""
-    import bullet_tpu.models.netsim as ns
-    import bullet_tpu.ops.packed as pk
-
-    for k in (2, 5, 40):  # 40 > convergence: cutoff AND converged cases
-        a, b = _pair("packed", "ring", seed=50 + k)
-        monkeypatch.setattr(
-            b, "_fast_forward_route", lambda: "frontier"
-        )
-        # interpret-mode kernels on CPU: patch the pallas entry the route
-        # uses so the test runs without a TPU
-        orig = pk.gossip_frontier_packed
-        monkeypatch.setattr(
-            pk, "gossip_frontier_packed",
-            lambda table, dirty, wrap, mr, interpret=False, fuse=1:
-                orig(table, dirty, wrap, mr, interpret=True, fuse=fuse),
-        )
-        ra = a.step(k)
-        rb = b.fast_forward(k)
-        monkeypatch.undo()
-        assert ra == rb, (k, ra, rb)
-        _tables_equal(a, b)
+@pytest.mark.parametrize("k", [2, 5, 40])
+@pytest.mark.parametrize("layout", ["packed", "rank", "rank1"])
+def test_fast_forward_cutoff_matches_step(layout, k):
+    """Jumps that stop short of the fixed point (k=2, 5) and that run
+    past it (k=40, which the window ends early at its first identity
+    pass) both match step(k): tables, residual and accounting."""
+    a, b = _pair(layout, "ring", seed=50 + k)
+    ra = a.step(k)
+    rb = b.fast_forward(k)
+    assert ra == rb, (k, ra, rb)
+    _tables_equal(a, b)
+    assert b.stats["windowed_rounds"] == k
+    assert b.stats["gossip_rounds"] == a.stats["gossip_rounds"] == k

@@ -294,9 +294,9 @@ def test_native_number_keys_bitidentical():
 
 def test_native_reduce_flat_ops_bitidentical():
     """bk_reduce_flat_ops must match the numpy argsort+reduceat reduction
-    (ops/packed.py::reduce_flat_ops fallback) exactly in both winner order
-    modes, including duplicate-heavy groups, lexmax ties, cls=0 filtering,
-    and empty/all-filtered batches."""
+    (ops/packed.py::reduce_flat_ops fallback) exactly, including
+    duplicate-heavy groups, lexmax ties, cls=0 filtering, and
+    empty/all-filtered batches."""
     import numpy as np
     import pytest
 
@@ -327,14 +327,13 @@ def test_native_reduce_flat_ops_bitidentical():
         khi = rng.integers(-(2**31), 2**31, k).astype(np.int32)
         klo = rng.integers(-(2**31), 2**31, k).astype(np.int32)
         vid = rng.integers(0, 1 << 28, k).astype(np.int32)
-        for bs in (None, (p, n)):
-            a = reduce_flat_ops(peer, slot, cls, khi, klo, vid, block_shape=bs)
-            b = numpy_ref(peer, slot, cls, khi, klo, vid, block_shape=bs)
-            if a is None or b is None:
-                assert a is None and b is None, (trial, bs)
-                continue
-            for x, y, nm in zip(a, b, "peer slot khi klo cv".split()):
-                np.testing.assert_array_equal(x, y, err_msg=f"{trial} {bs} {nm}")
+        a = reduce_flat_ops(peer, slot, cls, khi, klo, vid)
+        b = numpy_ref(peer, slot, cls, khi, klo, vid)
+        if a is None or b is None:
+            assert a is None and b is None, trial
+            continue
+        for x, y, nm in zip(a, b, "peer slot khi klo cv".split()):
+            np.testing.assert_array_equal(x, y, err_msg=f"{trial} {nm}")
     z = np.zeros(10, np.int32)
     assert reduce_flat_ops(z, z, z, z, z, z) is None
     e = np.empty(0, np.int32)

@@ -1,7 +1,7 @@
 """Rank layout (ops.rank): bit-parity with the packed layout.
 
 The rank table's converged cv arrays must be bit-identical to the packed
-layout's on every shared kernel path — the rank is a pure re-encoding of
+layout's on every shared program — the rank is a pure re-encoding of
 the (cls, khi, klo, vid) order (see ops/rank.py docstring). cv carries
 (cls, vid) and khi/klo are functions of vid, so cv equality IS full-state
 equality.
@@ -134,48 +134,41 @@ def test_gossip_round_generic_parity():
     assert int(cp) == int(cr)
 
 
-def test_pallas_round_parity():
-    rng = np.random.default_rng(5)
-    cls, khi, klo, idx = make_world(rng)
-    pt = rand_packed(rng, 16, 256, cls, khi, klo)
-    rt = to_rank(pt, idx)
-    mp, cp = pk.ring_round_packed_pallas(pt, wrap=True)
-    mr, cr = pk.ring_round_packed_pallas(rt, wrap=True)
-    assert_cv_equal(mr, mp)
-    assert int(cp) == int(cr)
-
-
-def test_halo_round_parity():
-    rng = np.random.default_rng(6)
-    cls, khi, klo, idx = make_world(rng)
-    # big-P shape that routes to the halo kernel
-    p, n = 2048, 128
-    assert not pk.packed_ring_supported(p, n) or True
-    pt = rand_packed(rng, p, n, cls, khi, klo, density=0.2)
-    rt = to_rank(pt, idx)
-    mp, cp = pk.halo_round_packed_traced(pt, True, True)
-    mr, cr = pk.halo_round_packed_traced(rt, True, True)
-    assert_cv_equal(mr, mp)
-    assert int(cp) == int(cr)
-
-
-@pytest.mark.parametrize("fuse", [1, 4])
+@pytest.mark.parametrize("max_rounds", [64, 3])
 @pytest.mark.parametrize("wrap", [True, False])
-def test_frontier_loop_parity(fuse, wrap):
-    rng = np.random.default_rng(7 + fuse)
+def test_converge_loop_parity(max_rounds, wrap):
+    """The compiled convergence loop, run to the fixed point or cut off:
+    same state, round count and residual on packed and rank."""
+    from bullet_tpu.parallel import topology as topo_mod
+
+    rng = np.random.default_rng(7 + max_rounds)
     cls, khi, klo, idx = make_world(rng)
     pt = rand_packed(rng, 16, 512, cls, khi, klo, density=0.3)
     rt = to_rank(pt, idx)
-    t_total = 512 // pk.frontier_tile_n(16, 512)
-    dirty = jnp.ones((t_total,), bool)
-    tp, rp, lp = pk.gossip_frontier_packed(
-        pk.PackedTable(*(jnp.array(f) for f in pt)), dirty, wrap, 64,
-        True, fuse,
-    )
-    tr, rr, lr = pk.gossip_frontier_packed(rt, dirty, wrap, 64, True, fuse)
+    kind = "ring" if wrap else "chain"
+    nb = jnp.asarray(getattr(topo_mod, kind)(16).neighbors)
+    tp, rp, lp = pk.gossip_until_converged_packed(
+        pk.PackedTable(*(jnp.array(f) for f in pt)), nb, kind, max_rounds)
+    tr, rr, lr = pk.gossip_until_converged_packed(rt, nb, kind, max_rounds)
     assert_cv_equal(tr, tp)
     assert int(rp) == int(rr)
     assert int(lp) == int(lr)
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+def test_window_rank_parity(wrap):
+    """The radius-m window join on packed and rank: same state and
+    round-m residual."""
+    rng = np.random.default_rng(20)
+    cls, khi, klo, idx = make_world(rng)
+    pt = rand_packed(rng, 16, 512, cls, khi, klo, density=0.3)
+    rt = to_rank(pt, idx)
+    wp, cp = pk.ring_window_packed_xla(
+        pk.PackedTable(*(jnp.array(f) for f in pt)), wrap, 9)
+    wr, cr = pk.ring_window_packed_xla(
+        rk.RankTable(*(jnp.array(f) for f in rt)), wrap, 9)
+    assert_cv_equal(wr, wp)
+    assert int(cp) == int(cr)
 
 
 def test_reconcile_parity():
@@ -186,8 +179,6 @@ def test_reconcile_parity():
     rp = pk.reconcile_packed_xla(pk.PackedTable(*(jnp.array(f) for f in pt)))
     rr = pk.reconcile_packed_xla(rk.RankTable(*(jnp.array(f) for f in rt)))
     assert_cv_equal(rr, rp)
-    rr2 = pk._reconcile_packed_jit(rt, True)
-    assert_cv_equal(rr2, rp)
 
 
 def test_apply_flat_parity():
@@ -288,70 +279,6 @@ def test_converged_fixed_point_parity():
     assert_cv_equal(tr, tp)
 
 
-def _rand_ops(rng, p, n, k, cls, khi, klo, idx):
-    peer = rng.integers(0, p, k).astype(np.int32)
-    slot = rng.integers(0, n, k).astype(np.int32)
-    vid = rng.integers(0, len(cls), k).astype(np.int32)
-    rmap = idx.rank_map()
-    cv = ((cls[vid].astype(np.int64) << pk.CV_SHIFT) | vid).astype(np.int32)
-    return peer, slot, rmap[vid], cv
-
-
-def test_blocked_apply_rank_bitidentical_to_flat():
-    rng = np.random.default_rng(20)
-    cls, khi, klo, idx = make_world(rng)
-    p, n = 16, 512
-    pt = rand_packed(rng, p, n, cls, khi, klo, density=0.3)
-    rt0 = to_rank(pt, idx)
-    peer, slot, rank, cv = _rand_ops(rng, p, n, 700, cls, khi, klo, idx)
-
-    red_sorted = rk.reduce_flat_ops_rank(peer, slot, rank, cv)
-    red_block = rk.reduce_flat_ops_rank(
-        peer, slot, rank, cv, block_shape=(p, n)
-    )
-    t_flat, a_flat = rk.apply_flat_rank(
-        rk.RankTable(*(jnp.array(f) for f in rt0)),
-        *(jnp.asarray(a) for a in red_sorted),
-    )
-    t_blk, a_blk = pk.apply_flat_blocked(
-        rk.RankTable(*(jnp.array(f) for f in rt0)),
-        *pk.chunk_block_ops(*red_block, p, n),
-    )
-    np.testing.assert_array_equal(np.asarray(t_flat.cv), np.asarray(t_blk.cv))
-    np.testing.assert_array_equal(
-        np.asarray(t_flat.rank), np.asarray(t_blk.rank)
-    )
-    assert int(a_flat) == int(a_blk)
-
-
-def test_windowed_apply_rank_bitidentical_to_flat():
-    rng = np.random.default_rng(21)
-    cls, khi, klo, idx = make_world(rng)
-    p, n = 8, 1024
-    pt = rand_packed(rng, p, n, cls, khi, klo, density=0.3)
-    rt0 = to_rank(pt, idx)
-    peer, slot, rank, cv = _rand_ops(rng, p, n, 2000, cls, khi, klo, idx)
-
-    red_sorted = rk.reduce_flat_ops_rank(peer, slot, rank, cv)
-    red_block = rk.reduce_flat_ops_rank(
-        peer, slot, rank, cv, block_shape=(p, n)
-    )
-    t_flat, a_flat = rk.apply_flat_rank(
-        rk.RankTable(*(jnp.array(f) for f in rt0)),
-        *(jnp.asarray(a) for a in red_sorted),
-    )
-    assert pk.window_apply_supported(p, n)
-    t_win, a_win = pk.apply_flat_windowed(
-        rk.RankTable(*(jnp.array(f) for f in rt0)),
-        *pk.window_block_ops(*red_block, p, n),
-    )
-    np.testing.assert_array_equal(np.asarray(t_flat.cv), np.asarray(t_win.cv))
-    np.testing.assert_array_equal(
-        np.asarray(t_flat.rank), np.asarray(t_win.rank)
-    )
-    assert int(a_flat) == int(a_win)
-
-
 # ---------------------------------------------------------------- spmd
 
 def _mesh8():
@@ -389,10 +316,11 @@ def test_shardmap_round_rank_parity(topo):
     assert isinstance(mr, rk.RankTable)
 
 
-@pytest.mark.parametrize("fuse", [1, 8])
-def test_shardmap_frontier_rank_parity(fuse):
-    from bullet_tpu.ops.packed import frontier_tile_n_sharded
-    from bullet_tpu.parallel import shardmap_gossip as smg
+@pytest.mark.parametrize("kind", ["ring", "chain"])
+def test_shardmap_loop_rank_parity(kind):
+    """The shard_map convergence loop on packed and rank: same state,
+    round count and residual."""
+    from bullet_tpu.parallel import topology as topo_mod
 
     rng = np.random.default_rng(31)
     cls, khi, klo, idx = make_world(rng)
@@ -400,24 +328,21 @@ def test_shardmap_frontier_rank_parity(fuse):
     pt = rand_packed(rng, p, n, cls, khi, klo, density=0.3)
     rt = to_rank(pt, idx)
     mesh = _mesh8()
-    t_total = n // frontier_tile_n_sharded(p, n, 8)
-    dirty = jnp.ones((t_total,), bool)
-    tp, rp, lp = smg.gossip_frontier_shardmap_packed(
-        pk.PackedTable(*(jnp.array(f) for f in pt)), dirty, mesh, True,
-        64, interpret=True, fuse=fuse,
-    )
-    tr, rr, lr = smg.gossip_frontier_shardmap_packed(
-        rk.RankTable(*(jnp.array(f) for f in rt)), dirty, mesh, True,
-        64, interpret=True, fuse=fuse,
-    )
+    nb = jnp.asarray(getattr(topo_mod, kind)(p).neighbors)
+    tp, rp, lp = pk.gossip_until_converged_packed(
+        pk.PackedTable(*(jnp.array(f) for f in pt)), nb, kind, 2 * p,
+        spmd_mesh=mesh)
+    tr, rr, lr = pk.gossip_until_converged_packed(
+        rk.RankTable(*(jnp.array(f) for f in rt)), nb, kind, 2 * p,
+        spmd_mesh=mesh)
     assert_cv_equal(tr, tp)
     assert int(rp) == int(rr)
-    assert int(lp) == int(lr)
+    assert int(lp) == int(lr) == 0
 
 
 def test_native_reduce_rank_parity():
     """native.reduce_flat_ops_rank must be bit-identical to the numpy
-    fallback in both winner orders (ascending and block-major)."""
+    fallback."""
     from bullet_tpu import native
 
     if native.load() is None:
@@ -432,19 +357,16 @@ def test_native_reduce_rank_parity():
           | rng.integers(0, 1 << 20, k)).astype(np.int32)
     import os
 
-    for bs in (None, (p, n)):
-        fast = rk.reduce_flat_ops_rank(peer, slot, rank, cv, block_shape=bs)
-        os.environ["BULLET_NO_NATIVE"] = "1"
+    fast = rk.reduce_flat_ops_rank(peer, slot, rank, cv)
+    os.environ["BULLET_NO_NATIVE"] = "1"
+    native._lib, native._load_failed = None, False
+    try:
+        slow = rk.reduce_flat_ops_rank(peer, slot, rank, cv)
+    finally:
+        del os.environ["BULLET_NO_NATIVE"]
         native._lib, native._load_failed = None, False
-        try:
-            slow = rk.reduce_flat_ops_rank(
-                peer, slot, rank, cv, block_shape=bs
-            )
-        finally:
-            del os.environ["BULLET_NO_NATIVE"]
-            native._lib, native._load_failed = None, False
-        for a, b in zip(fast, slow):
-            np.testing.assert_array_equal(a, b)
+    for a, b in zip(fast, slow):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_native_rank_insert_batch_parity():

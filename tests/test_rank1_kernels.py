@@ -1,7 +1,8 @@
-"""Kernel-level rank1 layout (4 B/entry, single int32 array): every shared
-packed-family kernel must produce ranks bit-identical to the 2-array rank
-layout when both start from the same rank state — the cv column is pure
-payload (rank is a bijection over entries; see ops/rank.py Rank1Table).
+"""Program-level rank1 layout (4 B/entry, single int32 array): every
+shared packed-family program must produce ranks bit-identical to the
+2-array rank layout when both start from the same rank state — the cv
+column is pure payload (rank is a bijection over entries; see ops/rank.py
+Rank1Table).
 """
 
 import numpy as np
@@ -17,7 +18,7 @@ from bullet_tpu.ops import rank as rk
 def _tables(p, n, seed=0, density=0.6):
     """Matching (Rank1Table, RankTable) over one random rank state. cv is
     a synthetic injection of rank (vid bits = low rank bits) — the shared
-    kernels never read it except as carried payload."""
+    programs never read it except as carried payload."""
     rng = np.random.default_rng(seed)
     rank = np.where(
         rng.random((p, n)) < density,
@@ -52,126 +53,77 @@ def test_merge_xla_parity():
 
 
 @pytest.mark.parametrize("wrap", [True, False])
-def test_stripe_round_parity(wrap):
+def test_round_parity(wrap):
     t1, t2, *_ = _tables(16, 512, seed=1)
-    g1, c1 = pk.ring_round_packed_traced(t1, wrap, True)
-    g2, c2 = pk.ring_round_packed_traced(t2, wrap, True)
+    round_fn = pk.gossip_round_ring_packed if wrap else pk.gossip_round_chain_packed
+    g1, c1 = round_fn(t1)
+    g2, c2 = round_fn(t2)
     _assert_rank_equal(g1, g2)
     assert int(c1) == int(c2)
 
 
-def test_multiround_fused_parity():
+@pytest.mark.parametrize("kind", ["ring", "chain"])
+def test_converge_loop_parity(kind):
+    """The compiled convergence loop on both rank arities: identical
+    ranks, round counts and residuals."""
+    from bullet_tpu.parallel import topology as topo
+
     t1, t2, *_ = _tables(16, 512, seed=2)
-    f1, c1 = pk.ring_multiround_packed_traced(t1, True, 4, True)
-    f2, c2 = pk.ring_multiround_packed_traced(t2, True, 4, True)
+    nb = jnp.asarray(getattr(topo, kind)(16).neighbors)
+    f1, r1, c1 = pk.gossip_until_converged_packed(t1, nb, kind, 40)
+    f2, r2, c2 = pk.gossip_until_converged_packed(t2, nb, kind, 40)
     _assert_rank_equal(f1, f2)
-    assert int(c1) == int(c2)
+    assert int(r1) == int(r2) and int(c1) == int(c2) == 0
 
 
 @pytest.mark.parametrize("wrap", [True, False])
 def test_window_fused_parity(wrap):
-    """The O(log m) window-join kernel on both rank arities: identical
-    ranks and identical classic round-m residuals."""
+    """The O(log m) window join on both rank arities: identical ranks,
+    identical classic round-m residuals, and bit-identity to the
+    sequential classic loop."""
     t1, t2, *_ = _tables(16, 512, seed=6)
-    w1, c1 = pk.ring_window_packed_traced(t1, wrap, 7, True)
-    w2, c2 = pk.ring_window_packed_traced(t2, wrap, 7, True)
+    w1, c1 = pk.ring_window_packed_xla(
+        rk.Rank1Table(jnp.array(t1.rank)), wrap, 7)
+    w2, c2 = pk.ring_window_packed_xla(
+        rk.RankTable(jnp.array(t2.rank), jnp.array(t2.cv)), wrap, 7)
     _assert_rank_equal(w1, w2)
     assert int(c1) == int(c2)
-    # and against the sequential classic loop on rank1
+    round_fn = pk.gossip_round_ring_packed if wrap else pk.gossip_round_chain_packed
     seq = t1
     for _ in range(7):
-        seq, c_last = pk.ring_round_packed_traced(seq, wrap, True)
+        seq, c_last = round_fn(seq)
     _assert_rank_equal(w1, seq)
     assert int(c1) == int(c_last)
 
 
 @pytest.mark.parametrize("wrap", [True, False])
-def test_window_halo_fused_parity(wrap):
-    """The windowed HALO kernel on both rank arities: identical ranks,
-    identical classic round-m residuals, and bit-identity to the
-    sequential classic loop (m=13 spans two inter-tile snapshot hops)."""
-    p, n = 64, 256
-    t1, t2, *_ = _tables(p, n, seed=19)
-    m = 13
-    w1, c1 = pk.ring_window_halo_packed_traced(
-        t1, wrap, m, True, tiles=(16, 128)
-    )
-    w2, c2 = pk.ring_window_halo_packed_traced(
-        t2, wrap, m, True, tiles=(16, 128)
-    )
-    _assert_rank_equal(w1, w2)
-    assert int(c1) == int(c2)
-    seq = t1
-    for _ in range(m):
-        seq, c_last = pk.ring_round_packed_traced(seq, wrap, True)
-    _assert_rank_equal(w1, seq)
-    assert int(c1) == int(c_last)
+def test_count_probe_parity(wrap):
+    t1, t2, *_ = _tables(16, 512, seed=3)
+    c1 = pk.count_changes_round_packed(t1, wrap)
+    c2 = pk.count_changes_round_packed(t2, wrap)
+    round_fn = pk.gossip_round_ring_packed if wrap else pk.gossip_round_chain_packed
+    assert int(c1) == int(c2) == int(round_fn(t1)[1])
 
 
-def test_halo_round_parity():
-    # big-P shape that routes to the halo kernel
-    t1, t2, *_ = _tables(64, 256, seed=3)
-    h1, c1 = pk.halo_round_packed_traced(t1, True, True)
-    h2, c2 = pk.halo_round_packed_traced(t2, True, True)
-    _assert_rank_equal(h1, h2)
-    assert int(c1) == int(c2)
-
-
-def test_halo_multiround_fused_parity():
-    """HALO_FUSE trapezoidal time-tiling on a halo shape, arity 1 vs 2."""
-    p, n = 64, 256
-    t1, t2, *_ = _tables(p, n, seed=12)
-    from bullet_tpu.ops.packed import _halo_tiles_packed
-
-    tile_p, tile_n = _halo_tiles_packed(p, n)
-    assert tile_n > 0
-    t_total = n // tile_n
-    ids = jnp.concatenate(
-        [
-            pk.frontier_ids_compact(jnp.ones(t_total, bool), t_total),
-            jnp.zeros((2,), jnp.int32),
-        ]
-    )
-    f1, i1 = pk.frontier_halo_multiround_packed_traced(t1, ids, True, True)
-    f2, i2 = pk.frontier_halo_multiround_packed_traced(t2, ids, True, True)
-    _assert_rank_equal(f1, f2)
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-
-
-def test_fused_spmd_frontier_parity():
-    """The fused multi-chip frontier (8 rounds per collective) on the
-    virtual mesh: rank1 must match rank in state AND round count."""
-    import jax as _jax
-    import pytest as _pytest
-
-    if len(_jax.devices()) < 8:
-        _pytest.skip("needs the virtual 8-device mesh")
-    from bullet_tpu.ops.packed import HALO_FUSE
+@pytest.mark.parametrize("wrap", [True, False])
+def test_shardmap_window_parity(wrap):
+    """The shard_map window (m rounds per boundary exchange) on both rank
+    arities over the virtual mesh: identical ranks and residuals, equal
+    to the unsharded window."""
+    from bullet_tpu.parallel import shardmap_gossip as smg
     from bullet_tpu.parallel.mesh import make_mesh, shard_table
-    from bullet_tpu.parallel.shardmap_gossip import (
-        gossip_frontier_shardmap_packed,
-    )
 
     t1, t2, *_ = _tables(64, 256, seed=13)
+    want, c_want = pk.ring_window_packed_xla(
+        rk.Rank1Table(jnp.array(t1.rank)), wrap, 5)
     mesh = make_mesh(8)
-    t_total = 256 // 128
-    dirty = jnp.ones(t_total * 1, dtype=jnp.bool_)
-    # per-device tile count: ask the real helper
-    from bullet_tpu.ops.packed import frontier_tile_n_sharded
-
-    tile = frontier_tile_n_sharded(64, 256, 8)
-    assert tile > 0
-    dirty = jnp.ones(256 // tile, dtype=jnp.bool_)
-    s1 = shard_table(t1, mesh)
-    s2 = shard_table(t2, mesh)
-    o1, r1, c1 = gossip_frontier_shardmap_packed(
-        s1, dirty, mesh, True, 64, interpret=True, fuse=HALO_FUSE
-    )
-    o2, r2, c2 = gossip_frontier_shardmap_packed(
-        s2, dirty, mesh, True, 64, interpret=True, fuse=HALO_FUSE
-    )
-    assert int(r1) == int(r2) and int(c1) == int(c2)
+    o1, c1 = smg.ring_window_shardmap_packed(shard_table(t1, mesh), mesh,
+                                             wrap, 5)
+    o2, c2 = smg.ring_window_shardmap_packed(shard_table(t2, mesh), mesh,
+                                             wrap, 5)
     _assert_rank_equal(o1, o2)
+    _assert_rank_equal(o1, want)
+    assert int(c1) == int(c2) == int(c_want)
 
 
 def test_reconcile_parity():
@@ -182,23 +134,6 @@ def test_reconcile_parity():
     # reconcile = the global join: every row identical
     rows = np.asarray(r1.rank)
     assert (rows == rows[0:1]).all()
-
-
-def test_frontier_round_parity():
-    t1, t2, *_ = _tables(16, 1024, seed=5)
-    tile = pk.frontier_tile_n(16, 1024)
-    assert tile > 0
-    t_total = 1024 // tile
-    ids = jnp.concatenate(
-        [
-            pk.frontier_ids_compact(jnp.ones(t_total, bool), t_total),
-            jnp.zeros((1,), jnp.int32),
-        ]
-    )
-    f1, i1 = pk.frontier_round_packed_traced(t1, ids, True, True)
-    f2, i2 = pk.frontier_round_packed_traced(t2, ids, True, True)
-    _assert_rank_equal(f1, f2)
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
 
 
 def _ops(p, n, k, seed=10):
@@ -223,31 +158,6 @@ def test_flat_apply_parity():
     )
     _assert_rank_equal(a1, a2)
     assert int(ap1) == int(ap2)
-
-
-def test_blocked_and_windowed_apply_parity():
-    p, n = 16, 1024
-    peer, slot, oprank, opcv = _ops(p, n, 300, seed=7)
-    red = rk.reduce_flat_ops_rank(peer, slot, oprank, opcv, block_shape=(p, n))
-    p_, s_, r_, cv_ = red
-    t1, t2, *_ = _tables(p, n, seed=7)
-    b1, c1 = pk.apply_flat_blocked(t1, *pk.chunk_block_ops(p_, s_, r_, p, n))
-    b2, c2 = pk.apply_flat_blocked(
-        t2, *pk.chunk_block_ops(p_, s_, r_, cv_, p, n)
-    )
-    _assert_rank_equal(b1, b2)
-    assert int(c1) == int(c2)
-    if pk.window_apply_supported(p, n):
-        t1, t2, *_ = _tables(p, n, seed=7)
-        w1, wc1 = pk.apply_flat_windowed(
-            t1, *pk.window_block_ops(p_, s_, r_, p, n)
-        )
-        w2, wc2 = pk.apply_flat_windowed(
-            t2, *pk.window_block_ops(p_, s_, r_, cv_, p, n)
-        )
-        _assert_rank_equal(w1, w2)
-        assert int(wc1) == int(wc2)
-        np.testing.assert_array_equal(np.asarray(b1.rank), np.asarray(w1.rank))
 
 
 def test_shardmap_ring_parity():

@@ -395,7 +395,7 @@ def test_checkpoint_roundtrip_rank(tmp_path, layout):
 def test_spmd_rank_sim_matches_packed(layout):
     if len(jax.devices()) < 8:
         pytest.skip("needs the virtual 8-device mesh")
-    kw = dict(mesh_devices=8, use_shard_map=True, use_pallas=True)
+    kw = dict(mesh_devices=8, use_shard_map=True)
     sp = PeerNetworkSim(64, capacity=256, topology="ring",
                         layout="packed", **kw)
     sr = PeerNetworkSim(64, capacity=256, topology="ring",
@@ -405,7 +405,7 @@ def test_spmd_rank_sim_matches_packed(layout):
     _seed(sr, rng2, 120, peers=64)
     name_p, _ = sp._convergence_strategy()
     name_r, _ = sr._convergence_strategy()
-    assert name_p == name_r == "packed-frontier-spmd"
+    assert name_p == name_r == "packed-loop"
     rp = sp.run_until_converged()
     rr = sr.run_until_converged()
     assert rp == rr

@@ -164,43 +164,57 @@ def test_serializer_index_boundary_match(bullet_factory):
 
 
 def test_halo_tiling_odd_shapes_match_xla():
-    """P=640/N=384 previously picked tile_p=5 (not 8-aligned) and merged
-    wrong neighbor rows silently; P=680 picked 85. Kernel must match XLA."""
+    """Odd peer counts (P=640/680/6 — not multiples of any tile) must merge
+    exactly the ring neighbors: the XLA round against a numpy oracle."""
     import jax.numpy as jnp
 
     from bullet_tpu.ops.merge import TableState
-    from bullet_tpu.ops.ring_kernel import _pick_tiles, ring_round_pallas
     from bullet_tpu.parallel.gossip import gossip_round_ring
-
-    for p, n in [(640, 384), (680, 384), (24, 256)]:
-        tile_p, _ = _pick_tiles(p, n)
-        assert tile_p % 8 == 0 and p % tile_p == 0, (p, n, tile_p)
 
     rng = np.random.default_rng(0)
 
     def rt(p, n):
         def arr(lo, hi):
-            return jnp.asarray(rng.integers(lo, hi, (p, n), dtype=np.int32))
+            return rng.integers(lo, hi, (p, n), dtype=np.int32)
 
-        return TableState(arr(0, 4), arr(-50, 50), arr(-50, 50), arr(0, 30),
-                          arr(0, p), arr(0, 9), arr(0, 5))
+        return [arr(0, 4), arr(-50, 50), arr(-50, 50), arr(0, 30),
+                arr(0, p), arr(0, 9), arr(0, 5)]
 
-    for p, n in [(640, 384), (680, 384)]:
-        t = rt(p, n)
-        ref, cr = gossip_round_ring(t, "reference")
-        ker, ck = ring_round_pallas(t, mode="reference", wrap=True, interpret=True)
-        for a, b in zip(ref, ker):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-        assert int(cr) == int(ck)
+    def oracle(fields):
+        keys = fields[:6]  # reference priority: cls, khi, klo, vid, writer, ctr
+
+        def merge(a, b, ka, kb):
+            gt = np.zeros(ka[0].shape, bool)
+            eq = np.ones(ka[0].shape, bool)
+            for x, y in zip(ka, kb):
+                gt |= eq & (y > x)
+                eq &= x == y
+            return [np.where(gt, fb, fa) for fa, fb in zip(a, b)], gt.sum()
+
+        up = [np.roll(f, 1, axis=0) for f in fields]
+        m1, c1 = merge(fields, up, keys, up[:6])
+        down = [np.roll(f, -1, axis=0) for f in fields]
+        m2, c2 = merge(m1, down, m1[:6], down[:6])
+        return m2, c1 + c2
+
+    for p, n in [(640, 384), (680, 384), (6, 128)]:
+        fields = rt(p, n)
+        want, cw = oracle(fields)
+        got, cg = gossip_round_ring(
+            TableState(*(jnp.asarray(f) for f in fields)), "reference")
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(a, np.asarray(b))
+        assert int(cw) == int(cg)
 
 
 def test_unsupported_shapes_fall_back_to_xla():
-    """p not a multiple of 8 must fall back, not crash."""
+    """p not a multiple of 8 runs like any other shape."""
     from bullet_tpu.ops.merge import init_table
-    from bullet_tpu.ops.ring_kernel import ring_round_pallas
+    from bullet_tpu.parallel import topology as topo
+    from bullet_tpu.parallel.gossip import gossip_round
 
     t = init_table(6, 128)
-    merged, changed = ring_round_pallas(t, wrap=True)
+    merged, changed = gossip_round(t, topo.ring(6))
     assert merged.cls.shape == (6, 128)
     assert int(changed) == 0
 
@@ -461,10 +475,9 @@ def test_csv_numeric_coercion_js_semantics():
 
 
 def test_zero_round_frontier_does_not_fake_convergence():
-    """Code-review r2 session 2: a run_until_converged(max_rounds=0) call
-    executes zero frontier rounds; the loop must NOT report residual 0, or
-    netsim zeroes its dirty-stripe seed and later convergences skip the
-    still-dirty stripes forever (replicas permanently divergent)."""
+    """A run_until_converged(max_rounds=0) call runs zero rounds; it must
+    NOT report residual 0 while replicas still differ, and a later
+    convergence must still reach the fixed point."""
     import numpy as np
 
     from bullet_tpu.models.netsim import PeerNetworkSim
@@ -472,7 +485,7 @@ def test_zero_round_frontier_does_not_fake_convergence():
     for layout in ("packed", "dense"):
         sim = PeerNetworkSim(8, capacity=1024, topology="ring", layout=layout)
         sim.put(0, "a/x", 1)
-        sim.run_until_converged()  # establish frontier tracking (all clean)
+        sim.run_until_converged()
         assert sim.tables_equal()
         sim.put(2, "a/y", 7)
         r = sim.run_until_converged(max_rounds=0)  # applies, gossips nothing
@@ -533,9 +546,8 @@ def test_bulk_after_put_fires_without_put_hook():
 
 
 def test_sharded_frontier_residual_zero_at_fixed_point():
-    """Review session-2: the shard_map frontier loop returned its init
-    sentinel 1 as last_changed when entered with an empty frontier, so an
-    already-converged sharded sim reported last_residual == 1."""
+    """An already-converged sharded sim entering the shard_map loop again
+    reports last_residual == 0, not the loop's init sentinel."""
     from bullet_tpu.models.netsim import PeerNetworkSim
 
     sim = PeerNetworkSim(16, capacity=2048, topology="ring",
@@ -543,7 +555,7 @@ def test_sharded_frontier_residual_zero_at_fixed_point():
     sim.put(0, "s/x", 3)
     sim.run_until_converged()
     assert sim.tables_equal()
-    sim.run_until_converged()  # nothing pending: empty frontier at entry
+    sim.run_until_converged()  # nothing pending: already at the fixed point
     assert sim.last_residual == 0
 
 

@@ -101,3 +101,28 @@ def test_sharded_reconcile_matches_unsharded():
         n_cmp = 4 if layout == "dense" else 3
         for fa, fb in zip(a[:n_cmp], b[:n_cmp]):
             np.testing.assert_array_equal(fa, fb, layout)
+
+
+@needs_devices
+@pytest.mark.parametrize("layout", ["dense", "packed", "rank1"])
+def test_sim_table_is_built_on_the_mesh(layout):
+    """The table is created shard by shard (never whole on one device),
+    and its fields are distinct buffers the donating apply can consume."""
+    sim = PeerNetworkSim(16, capacity=64, layout=layout, mesh_devices=8)
+    want = peer_sharding(sim.mesh)
+    for f in sim.table:
+        assert f.sharding.is_equivalent_to(want, f.ndim)
+        assert len(f.devices()) == 8
+    sim.put(3, "k/a", 7)
+    sim.step(0)
+    sim.run_until_converged()
+    assert sim.tables_equal()
+    assert all(sim.get(p, "k/a") == 7 for p in (0, 8, 15))
+    # a restored snapshot lands on the mesh too
+    snap = sim.snapshot()
+    sim.put(5, "k/a", 9)
+    sim.run_until_converged()
+    sim.restore(snap)
+    for f in sim.table:
+        assert f.sharding.is_equivalent_to(want, f.ndim)
+    assert sim.get(15, "k/a") == 7

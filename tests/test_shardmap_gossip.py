@@ -1,4 +1,4 @@
-"""Explicit shard_map+ppermute gossip vs the unsharded kernels: bit-identity
+"""Explicit shard_map+ppermute gossip vs the unsharded rounds: bit-identity
 on the virtual 8-device mesh."""
 
 import numpy as np
@@ -192,224 +192,65 @@ def test_sim_shard_map_all_topologies_converge(topology):
         np.testing.assert_array_equal(a, b)
 
 
+SPMD_CASES = {
+    "dense-reference": dict(layout="dense", mode="reference"),
+    "dense-lww": dict(layout="dense", mode="lww"),
+    "packed": dict(layout="packed"),
+    "rank": dict(layout="rank"),
+    "rank1": dict(layout="rank1"),
+}
+
+
+def _loaded(kw, topology, **extra):
+    sim = PeerNetworkSim(32, capacity=256, topology=topology, **kw, **extra)
+    rng = np.random.default_rng(79)
+    for _ in range(60):
+        sim.put(int(rng.integers(32)), f"k/v{int(rng.integers(12))}",
+                float(rng.integers(1000)))
+    return sim
+
+
 @needs_devices
-@pytest.mark.parametrize("wrap", [True, False])
-def test_frontier_shardmap_bitidentical(wrap):
-    """Sharded frontier loop (per-device Pallas frontier kernel + boundary
-    ppermute + psum'd dirty flags) reaches the exact fixed point in the
-    exact round count of the unsharded classic loop."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from bullet_tpu.ops.packed import (
-        PackedTable,
-        frontier_tile_n_sharded,
-        gossip_until_converged_packed,
-    )
-    from bullet_tpu.parallel.mesh import PEER_AXIS
-    from bullet_tpu.parallel.shardmap_gossip import (
-        gossip_frontier_shardmap_packed,
-    )
-
-    p, n, d = 32, 32768, 4
-    tile = frontier_tile_n_sharded(p, n, d)
-    t_total = n // tile
-    assert t_total >= 2
-
-    rng = np.random.default_rng(77)
-    khi = rng.integers(-1000, 1000, size=(p, n)).astype(np.int32)
-    klo = rng.integers(-1000, 1000, size=(p, n)).astype(np.int32)
-    cls = rng.integers(0, 4, size=(p, n)).astype(np.int32)
-    cv = ((cls << 28) | rng.integers(0, 100, size=(p, n))).astype(np.int32)
-    absent = cls == 0
-    khi[absent] = 0
-    klo[absent] = 0
-    cv[absent] = 0
-
-    kind = "ring" if wrap else "chain"
-    nb = jnp.asarray(getattr(topo, kind)(p).neighbors)
-    want, r_want, _ = gossip_until_converged_packed(
-        PackedTable(*(jnp.array(f) for f in (khi, klo, cv))), nb, kind, p + 2
-    )
-    mesh = make_mesh(d)
-    shard = NamedSharding(mesh, P(PEER_AXIS, None))
-    tbl = PackedTable(
-        *(jax.device_put(jnp.array(f), shard) for f in (khi, klo, cv))
-    )
-    got, r_got, c_got = gossip_frontier_shardmap_packed(
-        tbl, jnp.ones(t_total, dtype=jnp.bool_), mesh, wrap, p + 2,
-        interpret=True,
-    )
-    for a, b in zip(want, got):
+@pytest.mark.parametrize("max_rounds", [None, 7])
+@pytest.mark.parametrize("topology", ["ring", "chain"])
+@pytest.mark.parametrize("case", sorted(SPMD_CASES))
+def test_shardmap_loop_matches_step_loop(case, topology, max_rounds):
+    """The shard_map convergence loop over 4 devices lands on the
+    unsharded classic step loop's state, round count and last-round
+    residual, also when max_rounds cuts it off."""
+    kw = SPMD_CASES[case]
+    sharded = _loaded(kw, topology, mesh_devices=4, use_shard_map=True)
+    classic = _loaded(kw, topology)
+    rounds = sharded.run_until_converged(max_rounds)
+    cap = max_rounds if max_rounds is not None else 2 * 32
+    want_rounds, residual = 0, None
+    while want_rounds < cap:
+        residual = classic.step(1)
+        want_rounds += 1
+        if residual == 0:
+            break
+    assert rounds == want_rounds
+    assert sharded.last_residual == residual
+    assert all(len(f.devices()) == 4 for f in sharded.table)
+    for a, b in zip(classic.table, sharded.table):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert int(r_want) == int(r_got)
-    assert int(c_got) == 0
 
 
 @needs_devices
-def test_frontier_shardmap_sparse_seed():
-    """From a converged sharded table, dirtying one stripe converges with
-    only that frontier marked — same state as the classic loop."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from bullet_tpu.ops.packed import (
-        PackedTable,
-        frontier_tile_n_sharded,
-        gossip_until_converged_packed,
-    )
-    from bullet_tpu.parallel.mesh import PEER_AXIS
-    from bullet_tpu.parallel.shardmap_gossip import (
-        gossip_frontier_shardmap_packed,
-    )
-
-    p, n, d = 32, 32768, 4
-    tile = frontier_tile_n_sharded(p, n, d)
-    t_total = n // tile
-    nb = jnp.asarray(topo.ring(p).neighbors)
-    rng = np.random.default_rng(78)
-    khi = rng.integers(-1000, 1000, size=(p, n)).astype(np.int32)
-    klo = np.zeros((p, n), dtype=np.int32)
-    cv = np.full((p, n), (2 << 28) | 5, dtype=np.int32)
-    base = PackedTable(*(jnp.array(f) for f in (khi, klo, cv)))
-    base, _, _ = gossip_until_converged_packed(base, nb, "ring", p + 2)
-    upd = base._replace(
-        cv=base.cv.at[3, tile + 9].set((2 << 28) | 77),
-        khi=base.khi.at[3, tile + 9].set(10**9),
-    )
-    want, _, _ = gossip_until_converged_packed(
-        PackedTable(*(jnp.array(f) for f in upd)), nb, "ring", p + 2
-    )
-    mesh = make_mesh(d)
-    shard = NamedSharding(mesh, P(PEER_AXIS, None))
-    tbl = PackedTable(*(jax.device_put(jnp.array(f), shard) for f in upd))
-    dirty = jnp.zeros(t_total, dtype=jnp.bool_).at[1].set(True)
-    got, rounds, _ = gossip_frontier_shardmap_packed(
-        tbl, dirty, mesh, True, p + 2, interpret=True
-    )
-    for a, b in zip(want, got):
+@pytest.mark.parametrize("topology", ["ring", "chain"])
+@pytest.mark.parametrize("layout", ["packed", "rank", "rank1"])
+def test_shardmap_reconcile_matches_converged(layout, topology):
+    """reconcile() under a shard_map mesh (the doubling join as one
+    full-mesh collective round) lands on the converged loop's state."""
+    kw = dict(layout=layout)
+    sharded = _loaded(kw, topology, mesh_devices=4, use_shard_map=True)
+    classic = _loaded(kw, topology)
+    sharded.reconcile()
+    classic.run_until_converged()
+    assert sharded.tables_equal() and sharded.last_residual == 0
+    assert all(len(f.devices()) == 4 for f in sharded.table)
+    for a, b in zip(classic.table, sharded.table):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert int(rounds) >= 1
-
-    # FUSED loop from the same sparse seed: same state, same round count
-    from bullet_tpu.ops.packed import HALO_FUSE
-
-    tbl2 = PackedTable(*(jax.device_put(jnp.array(f), shard) for f in upd))
-    got_f, rounds_f, _ = gossip_frontier_shardmap_packed(
-        tbl2, dirty, mesh, True, p + 2, interpret=True, fuse=HALO_FUSE
-    )
-    for a, b in zip(want, got_f):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert int(rounds_f) == int(rounds)
-
-
-@needs_devices
-def test_sim_packed_shardmap_frontier_with_seeding():
-    """Sim-level: the sharded packed sim picks the frontier loop (use_pallas
-    opt-in on CPU), converges identically to an unsharded sim, and keeps
-    the incremental dirty-stripe seeding across convergences."""
-    def build(**kw):
-        sim = PeerNetworkSim(
-            32, capacity=32768, topology="ring", layout="packed", **kw
-        )
-        rng = np.random.default_rng(79)
-        for _ in range(40):
-            sim.put(int(rng.integers(32)), f"k/v{int(rng.integers(12))}",
-                    int(rng.integers(1000)))
-        return sim
-
-    plain = build(use_pallas=False)
-    plain.run_until_converged()
-    sharded = build(mesh_devices=4, use_shard_map=True, use_pallas=True)
-    assert sharded._frontier_tile() > 0
-    sharded.run_until_converged()
-    assert sharded.tables_equal()
-    assert sharded._frontier_dirty is not None
-    assert not sharded._frontier_dirty.any()
-    for f_a, f_b in zip(plain.table, sharded.table):
-        np.testing.assert_array_equal(np.asarray(f_a), np.asarray(f_b))
-
-    # incremental: new op seeds only its stripe, still converges right
-    sharded.put(7, "k/v3", 10_000)
-    plain.put(7, "k/v3", 10_000)
-    sharded.run_until_converged()
-    plain.run_until_converged()
-    assert sharded.tables_equal()
-    assert sharded.get(0, "k/v3") == 10_000
-    for f_a, f_b in zip(plain.table, sharded.table):
-        np.testing.assert_array_equal(np.asarray(f_a), np.asarray(f_b))
-
-
-@needs_devices
-@pytest.mark.parametrize("wrap", [True, False])
-def test_frontier_shardmap_fused_parity(wrap):
-    """The FUSED spmd frontier (HALO_FUSE=8 rounds per collective via
-    8-row boundary ppermute + trapezoidal time-tiling) must bit-match the
-    unsharded classic loop in state, round count, and residual — including
-    max_rounds cutoffs landing mid-fuse-block and mid-tail."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from bullet_tpu.ops.packed import (
-        HALO_FUSE,
-        PackedTable,
-        frontier_tile_n_sharded,
-        gossip_until_converged_packed,
-    )
-    from bullet_tpu.parallel.mesh import PEER_AXIS
-    from bullet_tpu.parallel.shardmap_gossip import (
-        gossip_frontier_shardmap_packed,
-    )
-
-    p, n, d = 32, 32768, 4
-    tile = frontier_tile_n_sharded(p, n, d)
-    t_total = n // tile
-    assert t_total >= 2
-
-    rng = np.random.default_rng(99)
-    khi = rng.integers(-1000, 1000, size=(p, n)).astype(np.int32)
-    klo = rng.integers(-1000, 1000, size=(p, n)).astype(np.int32)
-    cls = rng.integers(0, 4, size=(p, n)).astype(np.int32)
-    cv = ((cls << 28) | rng.integers(0, 100, size=(p, n))).astype(np.int32)
-    absent = cls == 0
-    khi[absent] = 0
-    klo[absent] = 0
-    cv[absent] = 0
-
-    kind = "ring" if wrap else "chain"
-    nb = jnp.asarray(getattr(topo, kind)(p).neighbors)
-    mesh = make_mesh(d)
-    shard = NamedSharding(mesh, P(PEER_AXIS, None))
-
-    # p+2 converges; 7 cuts mid-first-fuse-block; 12 cuts mid-tail
-    for max_rounds in (p + 2, 7, 12):
-        want, r_want, c_want = gossip_until_converged_packed(
-            PackedTable(*(jnp.array(f) for f in (khi, klo, cv))), nb, kind,
-            max_rounds,
-        )
-        tbl = PackedTable(
-            *(jax.device_put(jnp.array(f), shard) for f in (khi, klo, cv))
-        )
-        got, r_got, c_got = gossip_frontier_shardmap_packed(
-            tbl, jnp.ones(t_total, dtype=jnp.bool_), mesh, wrap, max_rounds,
-            interpret=True, fuse=HALO_FUSE,
-        )
-        for a, b in zip(want, got):
-            np.testing.assert_array_equal(
-                np.asarray(a), np.asarray(b), (wrap, max_rounds))
-        assert int(r_want) == int(r_got), (
-            wrap, max_rounds, int(r_want), int(r_got))
-        assert int(c_want) == int(c_got), (
-            wrap, max_rounds, int(c_want), int(c_got))
-
-    # empty frontier: zero rounds, zero residual, untouched table
-    tbl = PackedTable(
-        *(jax.device_put(jnp.array(f), shard) for f in (khi, klo, cv))
-    )
-    got, r, c = gossip_frontier_shardmap_packed(
-        tbl, jnp.zeros(t_total, dtype=jnp.bool_), mesh, True, p + 2,
-        interpret=True, fuse=HALO_FUSE,
-    )
-    assert int(r) == 0 and int(c) == 0
-    for a, b in zip((khi, klo, cv), got):
-        np.testing.assert_array_equal(a, np.asarray(b))
 
 
 # -------------------- packed mesh / star / generic collectives (round 3)
@@ -529,212 +370,6 @@ def test_sim_packed_shardmap_all_topologies(topology):
     spmd = run(mesh_devices=8, use_shard_map=True)
     for a, b in zip(plain, spmd):
         np.testing.assert_array_equal(a, b)
-
-
-# --------------------------- dense spmd frontier (round 3)
-
-
-@needs_devices
-@pytest.mark.parametrize("wrap", [True, False])
-@pytest.mark.parametrize("mode,lean", [
-    ("reference", False), ("lww", False), ("reference", True),
-])
-def test_frontier_shardmap_dense_bitidentical(wrap, mode, lean):
-    """Dense sharded frontier loop (per-device dense frontier kernel +
-    boundary ppermute + psum'd counts + compaction kernel) reaches the
-    exact fixed point in the exact round count of the unsharded classic
-    dense loop, for full-metadata reference/lww and lean."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from bullet_tpu.ops.ring_kernel import frontier_tile_n_dense_sharded
-    from bullet_tpu.parallel.gossip import gossip_until_converged_device
-    from bullet_tpu.parallel.mesh import PEER_AXIS
-    from bullet_tpu.parallel.shardmap_gossip import (
-        gossip_frontier_shardmap_dense,
-    )
-
-    p, n, d = 32, 16384, 4
-    tile = frontier_tile_n_dense_sharded(p, n, d, lean)
-    assert tile > 0
-    t_total = n // tile
-
-    t = random_table(p, n, seed=55)
-    kind = "ring" if wrap else "chain"
-    nb = jnp.asarray(getattr(topo, kind)(p).neighbors)
-    want, r_want, c_want = gossip_until_converged_device(
-        TableState(*(jnp.array(f) for f in t)), nb, kind, mode, p + 2,
-        use_pallas=False, lean=lean,
-    )
-    mesh = make_mesh(d)
-    shard = NamedSharding(mesh, P(PEER_AXIS, None))
-    tbl = TableState(*(jax.device_put(jnp.array(f), shard) for f in t))
-    got, r_got, c_got = gossip_frontier_shardmap_dense(
-        tbl, jnp.ones(t_total, dtype=jnp.bool_), mesh, wrap, mode, lean,
-        p + 2, interpret=True,
-    )
-    cmp_want = want[:4] if lean else tuple(want)
-    cmp_got = got[:4] if lean else tuple(got)
-    for name, a, b in zip(TableState._fields, cmp_want, cmp_got):
-        np.testing.assert_array_equal(
-            np.asarray(a), np.asarray(b), (name, wrap, mode, lean))
-    assert int(r_want) == int(r_got), (wrap, mode, lean)
-    assert int(c_got) == 0
-    if lean:
-        # lean contract: writer/ctr/tick stay device-local and untouched
-        for a, b in zip(t[4:], got[4:]):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@needs_devices
-def test_sim_dense_shardmap_frontier_matches_unsharded():
-    """Sim-level: the dense sharded frontier sim converges identically to
-    an unsharded dense sim (lww mode exercises clock sync too)."""
-    def build(**kw):
-        sim = PeerNetworkSim(
-            32, capacity=16384, topology="ring", mode="lww", **kw
-        )
-        rng = np.random.default_rng(41)
-        for _ in range(60):
-            sim.put(int(rng.integers(32)), f"k/v{int(rng.integers(8))}",
-                    int(rng.integers(1000)))
-        return sim
-
-    plain = build(use_pallas=False)
-    plain.run_until_converged()
-    sharded = build(mesh_devices=4, use_shard_map=True, use_pallas=True)
-    assert sharded._convergence_strategy()[0] == "dense-frontier-spmd"
-    sharded.run_until_converged()
-    assert sharded.tables_equal()
-    for f_a, f_b in zip(plain.table, sharded.table):
-        np.testing.assert_array_equal(np.asarray(f_a), np.asarray(f_b))
-
-
-@needs_devices
-@pytest.mark.parametrize("wrap", [True, False])
-@pytest.mark.parametrize("mode,lean", [
-    ("reference", False), ("lww", False), ("reference", True),
-])
-def test_frontier_shardmap_dense_fused_parity(wrap, mode, lean):
-    """The FUSED dense spmd frontier (HALO_FUSE=8 rounds per collective
-    via full 8-row boundary ppermute + trapezoidal time-tiling) must
-    bit-match the unsharded classic dense loop in state, round count, and
-    residual — including max_rounds cutoffs landing mid-fuse-block and
-    mid-tail (the dense twin of test_frontier_shardmap_fused_parity)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from bullet_tpu.ops.packed import HALO_FUSE
-    from bullet_tpu.ops.ring_kernel import frontier_tile_n_dense_sharded
-    from bullet_tpu.parallel.gossip import gossip_until_converged_device
-    from bullet_tpu.parallel.mesh import PEER_AXIS
-    from bullet_tpu.parallel.shardmap_gossip import (
-        gossip_frontier_shardmap_dense,
-    )
-
-    p, n, d = 32, 16384, 4
-    tile = frontier_tile_n_dense_sharded(p, n, d, lean)
-    assert tile > 0
-    t_total = n // tile
-
-    t = random_table(p, n, seed=71)
-    kind = "ring" if wrap else "chain"
-    nb = jnp.asarray(getattr(topo, kind)(p).neighbors)
-    mesh = make_mesh(d)
-    shard = NamedSharding(mesh, P(PEER_AXIS, None))
-
-    # p+2 converges; 7 cuts mid-first-fuse-block; 12 cuts mid-tail.
-    # Lean's baseline is the lean Pallas loop (use_pallas=lean): the XLA
-    # loop always merges metadata, so its cutoff residuals count 6-key
-    # wins the 4-key lean merge doesn't see (test_dense_frontier.py
-    # convention).
-    for max_rounds in (p + 2, 7, 12):
-        want, r_want, c_want = gossip_until_converged_device(
-            TableState(*(jnp.array(f) for f in t)), nb, kind, mode,
-            max_rounds, use_pallas=lean, lean=lean,
-        )
-        tbl = TableState(
-            *(jax.device_put(jnp.array(f), shard) for f in t)
-        )
-        got, r_got, c_got = gossip_frontier_shardmap_dense(
-            tbl, jnp.ones(t_total, dtype=jnp.bool_), mesh, wrap, mode,
-            lean, max_rounds, interpret=True, fuse=HALO_FUSE,
-        )
-        cmp_want = want[:4] if lean else tuple(want)
-        cmp_got = got[:4] if lean else tuple(got)
-        for name, a, b in zip(TableState._fields, cmp_want, cmp_got):
-            np.testing.assert_array_equal(
-                np.asarray(a), np.asarray(b),
-                (name, wrap, mode, lean, max_rounds))
-        assert int(r_want) == int(r_got), (
-            wrap, mode, lean, max_rounds, int(r_want), int(r_got))
-        assert int(c_want) == int(c_got), (
-            wrap, mode, lean, max_rounds, int(c_want), int(c_got))
-        if lean:
-            for a, b in zip(t[4:], got[4:]):
-                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    # empty frontier: zero rounds, zero residual, untouched table
-    tbl = TableState(*(jax.device_put(jnp.array(f), shard) for f in t))
-    got, r, c = gossip_frontier_shardmap_dense(
-        tbl, jnp.zeros(t_total, dtype=jnp.bool_), mesh, True, mode, lean,
-        p + 2, interpret=True, fuse=HALO_FUSE,
-    )
-    assert int(r) == 0 and int(c) == 0
-    for a, b in zip(t, got):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@needs_devices
-def test_frontier_shardmap_dense_fused_sparse_seed():
-    """Dense FUSED spmd loop from a converged table + one dirtied stripe:
-    lands on the classic loop's state with only that frontier marked, and
-    reports the same round count as the single-round spmd loop."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from bullet_tpu.ops.packed import HALO_FUSE
-    from bullet_tpu.ops.ring_kernel import frontier_tile_n_dense_sharded
-    from bullet_tpu.parallel.gossip import gossip_until_converged_device
-    from bullet_tpu.parallel.mesh import PEER_AXIS
-    from bullet_tpu.parallel.shardmap_gossip import (
-        gossip_frontier_shardmap_dense,
-    )
-
-    p, n, d = 32, 16384, 4
-    tile = frontier_tile_n_dense_sharded(p, n, d, False)
-    t_total = n // tile
-    assert t_total >= 2
-    nb = jnp.asarray(topo.ring(p).neighbors)
-    t = random_table(p, n, seed=83)
-    base, _, _ = gossip_until_converged_device(
-        TableState(*(jnp.array(f) for f in t)), nb, "ring", "reference",
-        p + 2, use_pallas=False,
-    )
-    upd = base._replace(
-        cls=base.cls.at[3, tile + 9].set(3),
-        khi=base.khi.at[3, tile + 9].set(10**9),
-    )
-    want, _, _ = gossip_until_converged_device(
-        TableState(*(jnp.array(f) for f in upd)), nb, "ring", "reference",
-        p + 2, use_pallas=False,
-    )
-    mesh = make_mesh(d)
-    shard = NamedSharding(mesh, P(PEER_AXIS, None))
-    dirty = jnp.zeros(t_total, dtype=jnp.bool_).at[1].set(True)
-
-    results = []
-    for fuse in (1, HALO_FUSE):
-        tbl = TableState(
-            *(jax.device_put(jnp.array(f), shard) for f in upd)
-        )
-        got, rounds, _ = gossip_frontier_shardmap_dense(
-            tbl, dirty, mesh, True, "reference", False, p + 2,
-            interpret=True, fuse=fuse,
-        )
-        for a, b in zip(want, got):
-            np.testing.assert_array_equal(
-                np.asarray(a), np.asarray(b), fuse)
-        assert int(rounds) >= 1
-        results.append(int(rounds))
-    assert results[0] == results[1], results
 
 
 @needs_devices
